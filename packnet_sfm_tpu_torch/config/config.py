@@ -1,0 +1,76 @@
+"""
+Config parsing: default tree + YAML merge + per-dataset list broadcasting
+(a copy of the JAX package's config/config.py without its checkpoint entry
+points, which the PyTorch port does not have yet).
+
+Reference: packnet_sfm/utils/config.py:13-44 (prep_dataset), :89-119.
+"""
+
+import os
+
+from packnet_sfm_tpu_torch.config.defaults import get_cfg_defaults
+
+_DATASET_LIST_KEYS = ['dataset', 'path', 'split', 'depth_type',
+                      'input_depth_type', 'cameras', 'repeat',
+                      'mask_file', 'use_mask']
+
+
+def prep_dataset(node):
+    """
+    Broadcast per-dataset list entries to the number of datasets.
+
+    The dataset count is the LONGEST list over all keys (reference
+    utils/config.py:13-44).
+    """
+    if len(node.get('path', [])) == 0 and len(node.get('dataset', [])) == 0:
+        return node
+    lengths = []
+    vals = {}
+    for key in _DATASET_LIST_KEYS:
+        if key not in node:
+            continue
+        val = node[key]
+        if not isinstance(val, (list, tuple)):
+            val = [val]
+        vals[key] = list(val)
+        lengths.append(len(vals[key]))
+    n = max(lengths) if lengths else 0
+    for key, val in vals.items():
+        if len(val) == 0:
+            val = ([[]] if key == 'cameras' else
+                   [False] if key == 'use_mask' else
+                   [1] if key == 'repeat' else [''])
+        if len(val) == 1 and n > 1:
+            val = val * n
+        if len(val) != n:
+            raise ValueError(
+                'Wrong number of entries for {} ({} vs {} datasets)'.format(
+                    key, len(val), n))
+        node[key] = val
+    return node
+
+
+def prepare_config(cfg):
+    """Finalize a merged config (dataset broadcasting, monitor key)."""
+    if cfg.prepared:
+        return cfg
+    for split in ['train', 'validation', 'test']:
+        prep_dataset(cfg.datasets[split])
+    if cfg.checkpoint.filepath:
+        name = cfg.name if cfg.name else 'model'
+        cfg.checkpoint.filepath = os.path.join(
+            cfg.checkpoint.filepath, name,
+            '{epoch:02d}_{%s:.3f}' % cfg.checkpoint.monitor)
+    cfg.prepared = True
+    return cfg
+
+
+def parse_train_config(yaml_path=None, overrides=None, defaults=None):
+    """Build a config from defaults + YAML + CLI-style overrides."""
+    cfg = (defaults or get_cfg_defaults()).clone()
+    if yaml_path:
+        cfg.merge_from_file(yaml_path)
+        cfg.config = yaml_path
+    if overrides:
+        cfg.merge_from_list(overrides)
+    return prepare_config(cfg)

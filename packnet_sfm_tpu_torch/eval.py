@@ -1,0 +1,85 @@
+"""
+Depth-completion evaluation entry point of the PyTorch port.
+
+    python -m packnet_sfm_tpu_torch.eval configs/train_resnet_san_ncdb_640x384.yaml
+
+builds the model from the YAML, draws its weights from a seeded
+torch.Generator, makes KITTI-structured RGB + LiDAR batches from a seed
+(there is no dataset or checkpoint in the repository yet) and returns the
+flat metrics dict of trainers/trainer.py `evaluate`. Runs on the card
+unless device='cpu' is passed.
+"""
+
+import argparse
+
+import numpy as np
+import torch
+
+from packnet_sfm_tpu_torch.config import parse_train_config
+from packnet_sfm_tpu_torch.device import resolve_device
+from packnet_sfm_tpu_torch.models.factory import setup_model, init_weights
+from packnet_sfm_tpu_torch.trainers.trainer import evaluate
+
+
+def image_shape(config):
+    shape = tuple(config.datasets.augmentation.image_shape)
+    if len(shape) != 2:
+        raise ValueError('datasets.augmentation.image_shape must be (H, W)')
+    return shape
+
+
+def build(config_path, device='cuda', seed=0, overrides=None):
+    """(config, eval-mode model on `device` with seeded random weights)."""
+    dev = resolve_device(device)
+    config = parse_train_config(config_path, overrides)
+    model = init_weights(setup_model(config),
+                         torch.Generator().manual_seed(seed))
+    return config, model.to(dev).eval()
+
+
+def make_batches(shape, batch_size, n_batches, seed=0, device='cuda'):
+    """KITTI-structured batches: uniform RGB; GT depth 1-71 m at 20% of the
+    pixels; LiDAR on 64 beam rows spread from 40% of the height to the
+    bottom (the rows above are empty, as above the horizon), 20% azimuth
+    fill, depth 1-71 m."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    B, (H, W) = batch_size, shape
+    beam_rows = np.linspace(int(H * 0.4), H - 1, 64).astype(int)
+    batches = []
+    for _ in range(n_batches):
+        rgb = rng.rand(B, H, W, 3).astype(np.float32)
+        depth = ((rng.rand(B, H, W, 1) * 70 + 1) *
+                 (rng.rand(B, H, W, 1) < 0.2)).astype(np.float32)
+        mask = np.zeros((B, H, W, 1), np.float32)
+        mask[:, beam_rows] = rng.rand(B, len(beam_rows), W, 1) < 0.20
+        lidar = ((rng.rand(B, H, W, 1) * 70 + 1) * mask).astype(np.float32)
+        batches.append({k: torch.from_numpy(v).to(dev) for k, v in
+                        (('rgb', rgb), ('depth', depth),
+                         ('input_depth', lidar))})
+    return batches
+
+
+def main(config_path, device='cuda', batch_size=1, n_batches=2, seed=0,
+         overrides=None):
+    """Evaluate seeded weights on seeded batches; returns the metrics dict.
+    `overrides` is a flat ['a.b.c', value, ...] list merged over the YAML,
+    e.g. ['model.params.flip_tta', True]."""
+    config, model = build(config_path, device, seed, overrides)
+    batches = make_batches(image_shape(config), batch_size, n_batches, seed,
+                           device)
+    return evaluate(config, model, batches)
+
+
+if __name__ == '__main__':
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('config')
+    ap.add_argument('--device', default='cuda')
+    ap.add_argument('--batch-size', type=int, default=1)
+    ap.add_argument('--n-batches', type=int, default=2)
+    ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('overrides', nargs='*',
+                    help='KEY VALUE pairs merged over the YAML, e.g. '
+                         'model.params.flip_tta True')
+    a = ap.parse_args()
+    main(a.config, a.device, a.batch_size, a.n_batches, a.seed, a.overrides)

@@ -1,0 +1,90 @@
+"""
+Model construction from a config (the JAX package's models/factory.py
+setup_model, for the families this port has) and seeded random weights.
+"""
+
+import math
+
+import torch
+
+from packnet_sfm_tpu_torch.models.sfm import SfmModel, SemiSupCompletionModel
+from packnet_sfm_tpu_torch.networks.depth.resnet_san import ResNetSAN01
+from packnet_sfm_tpu_torch.networks.layers.resnet import Conv, BatchNorm
+from packnet_sfm_tpu_torch.networks.layers.san import (
+    _MaskedConv, MaskedBatchNorm)
+
+DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
+
+def compute_dtype(config):
+    """The conv compute dtype from `tpu.compute_dtype` (float32 default)."""
+    return DTYPES.get(config.get('tpu', {}).get('compute_dtype', 'float32'),
+                      torch.float32)
+
+
+def setup_depth_net(config, dtype=torch.float32):
+    """Build cfg.model.depth_net (ResNetSAN01 only in this port)."""
+    if config.name != 'ResNetSAN01':
+        raise NotImplementedError(
+            'depth_net {!r} is not ported yet'.format(config.name))
+    kwargs = {}
+    for key in ('version', 'use_film', 'film_scales', 'use_dual_head',
+                'san_row_window'):
+        v = config.get(key, None)
+        if v is not None and v != '':
+            kwargs[key] = tuple(v) if isinstance(v, list) else v
+    return ResNetSAN01(dtype=dtype, **kwargs)
+
+
+def setup_model(config):
+    """Build the eval model from cfg.model (float32 parameters on the CPU;
+    move it with .to(device))."""
+    model_cfg = config.model
+    if model_cfg.pose_net.name:
+        raise NotImplementedError('pose networks are not ported yet')
+    depth_net = setup_depth_net(model_cfg.depth_net, compute_dtype(config))
+    if model_cfg.name == 'SfmModel':
+        return SfmModel(depth_net)
+    if model_cfg.name == 'SemiSupCompletionModel':
+        return SemiSupCompletionModel(depth_net)
+    raise NotImplementedError('model {!r} is not ported yet'.format(
+        model_cfg.name))
+
+
+def _xavier_(t, fan_in, fan_out, gen):
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        t.uniform_(-limit, limit, generator=gen)
+
+
+@torch.no_grad()
+def init_weights(model, generator):
+    """Random weights drawn from `generator`, with the flax initialisers'
+    distributions: kaiming fan-out normal for encoder convs, glorot uniform
+    for the others and the masked convs, zero biases, identity BN (running
+    mean 0, var 1). The draws are not those of the JAX package's keys."""
+    for mod in model.modules():
+        if isinstance(mod, Conv):
+            o, i, kh, kw = mod.weight.shape
+            if mod.init == 'kaiming':
+                std = math.sqrt(2.0 / (o * kh * kw))
+                mod.weight.normal_(0.0, std, generator=generator)
+            else:
+                _xavier_(mod.weight, i * kh * kw, o * kh * kw, generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, _MaskedConv):
+            kh, kw, i, o = mod.kernel.shape
+            _xavier_(mod.kernel, i * kh * kw, o * kh * kw, generator)
+            mod.bias.zero_()
+        elif isinstance(mod, BatchNorm):
+            mod.reset_parameters()
+        elif isinstance(mod, MaskedBatchNorm):
+            mod.scale.fill_(1.0)
+            mod.bias.zero_()
+            mod.mean.zero_()
+            mod.var.fill_(1.0)
+        elif isinstance(mod, ResNetSAN01):
+            mod.weight.fill_(0.5)
+            mod.bias.zero_()
+    return model

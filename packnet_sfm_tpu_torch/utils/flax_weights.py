@@ -1,0 +1,80 @@
+"""
+Carry the JAX package's flax variables into the port's modules.
+
+The port's submodules are named after the flax module paths, so a flax
+leaf `a/b/Conv_1/kernel` lands on `model.a.b.Conv_1`:
+- nn.Conv2d (the port's `Conv`): `kernel` HWIO -> `weight` OIHW, `bias`;
+- nn.BatchNorm2d: `scale` -> `weight`, `bias`, and batch_stats `mean` /
+  `var` -> `running_mean` / `running_var`;
+- everything else (masked-conv `kernel` kept HWIO for the kernel,
+  MaskedBatchNorm `scale`/`bias`/`mean`/`var`, the fusion gates `weight` /
+  `bias`): the same name, as it is.
+
+Unlike the JAX package's utils/load.py, which keeps the random init for
+names it cannot match, this raises on any missing or unexpected key and on
+any shape mismatch.
+"""
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+_BN_NAMES = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
+             'var': 'running_var'}
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def _target(mod, leaf, value):
+    """(torch attribute name, converted array) for one flax leaf."""
+    if isinstance(mod, nn.Conv2d):
+        if leaf == 'kernel':
+            return 'weight', np.transpose(value, (3, 2, 0, 1))
+        return leaf, value
+    if isinstance(mod, nn.BatchNorm2d):
+        return _BN_NAMES.get(leaf, leaf), value
+    return leaf, value
+
+
+def load_flax_variables(model, variables):
+    """Copy a flax {'params', 'batch_stats'} tree (nested dicts of arrays)
+    into `model` in place; returns the model. Raises KeyError on missing or
+    unexpected keys and ValueError on a shape mismatch."""
+    extra_cols = set(variables) - {'params', 'batch_stats'}
+    if extra_cols:
+        raise KeyError('unexpected variable collections: {}'.format(
+            sorted(extra_cols)))
+    state = model.state_dict()
+    values, unexpected = {}, []
+    for col in ('params', 'batch_stats'):
+        for path, value in _flatten(variables.get(col, {})):
+            name = '/'.join((col,) + path)
+            try:
+                mod = model.get_submodule('.'.join(path[:-1]))
+            except AttributeError:
+                unexpected.append(name)
+                continue
+            attr, arr = _target(mod, path[-1], np.asarray(value))
+            key = '.'.join(path[:-1] + (attr,))
+            if key not in state or key in values:
+                unexpected.append(name)
+                continue
+            if tuple(arr.shape) != tuple(state[key].shape):
+                raise ValueError('{}: flax shape {} vs torch {} {}'.format(
+                    name, arr.shape, key, tuple(state[key].shape)))
+            values[key] = arr
+    missing = sorted(k for k in state if k not in values
+                     and not k.endswith('num_batches_tracked'))
+    if missing or unexpected:
+        raise KeyError('flax -> torch weights: missing {}; unexpected {}'
+                       .format(missing, sorted(unexpected)))
+    with torch.no_grad():
+        for key, arr in values.items():
+            state[key].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+    return model
