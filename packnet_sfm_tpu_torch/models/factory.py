@@ -1,12 +1,14 @@
 """
 Model construction from a config (the JAX package's models/factory.py
-setup_model, for the families this port has) and seeded random weights.
+setup_model, for the families this port has: the depth net, the supervised
+loss and the model's loss fields) and seeded random weights.
 """
 
 import math
 
 import torch
 
+from packnet_sfm_tpu_torch.losses.supervised import SupervisedLoss
 from packnet_sfm_tpu_torch.models.sfm import SfmModel, SemiSupCompletionModel
 from packnet_sfm_tpu_torch.networks.depth.resnet_san import ResNetSAN01
 from packnet_sfm_tpu_torch.networks.layers.resnet import Conv, BatchNorm
@@ -36,17 +38,51 @@ def setup_depth_net(config, dtype=torch.float32):
     return ResNetSAN01(dtype=dtype, **kwargs)
 
 
+def setup_supervised_loss(loss_cfg, params_cfg):
+    """SupervisedLoss from cfg.model.loss / cfg.model.params."""
+    return SupervisedLoss(
+        supervised_method=loss_cfg.supervised_method,
+        supervised_num_scales=loss_cfg.supervised_num_scales,
+        progressive_scaling=loss_cfg.get('progressive_scaling', 0.0),
+        loss_kwargs=(
+            ('min_depth', params_cfg.min_depth),
+            ('max_depth', params_cfg.max_depth),
+            ('ssi_weight', loss_cfg.ssi_weight),
+            ('silog_weight', loss_cfg.silog_weight),
+            ('alpha', loss_cfg.alpha),
+            ('silog_ratio2', loss_cfg.silog_ratio2),
+            ('gradient_weight', loss_cfg.gradient_weight),
+            ('gradient_scales', loss_cfg.gradient_scales),
+        ))
+
+
 def setup_model(config):
-    """Build the eval model from cfg.model (float32 parameters on the CPU;
-    move it with .to(device))."""
+    """Build the model from cfg.model (float32 parameters on the CPU; move
+    it with .to(device), pick the branch with .train() / .eval())."""
     model_cfg = config.model
+    loss_cfg, params_cfg = model_cfg.loss, model_cfg.params
     if model_cfg.pose_net.name:
         raise NotImplementedError('pose networks are not ported yet')
     depth_net = setup_depth_net(model_cfg.depth_net, compute_dtype(config))
+    common = dict(flip_lr_prob=loss_cfg.get('flip_lr_prob', 0.0),
+                  upsample_depth_maps=loss_cfg.upsample_depth_maps)
     if model_cfg.name == 'SfmModel':
-        return SfmModel(depth_net)
+        return SfmModel(depth_net, **common)
     if model_cfg.name == 'SemiSupCompletionModel':
-        return SemiSupCompletionModel(depth_net)
+        min_d = params_cfg.min_depth or 0.5
+        max_d = params_cfg.max_depth or 80.0
+        if max_d <= min_d:
+            max_d = min_d + 1.0
+        return SemiSupCompletionModel(
+            depth_net,
+            supervised_loss=setup_supervised_loss(loss_cfg, params_cfg),
+            supervised_loss_weight=loss_cfg.supervised_loss_weight,
+            weight_rgbd=loss_cfg.get('weight_rgbd', 1.0),
+            consistency_loss_weight=loss_cfg.consistency_loss_weight,
+            min_depth=min_d, max_depth=max_d,
+            use_log_space=params_cfg.use_log_space,
+            qat_outputs='outputs' in str(params_cfg.get('qat', '')),
+            **common)
     raise NotImplementedError('model {!r} is not ported yet'.format(
         model_cfg.name))
 

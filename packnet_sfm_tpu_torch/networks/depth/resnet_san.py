@@ -1,6 +1,6 @@
 """
-ResNetSAN01, eval forward: the depth-completion network of the JAX
-package's networks/depth/resnet_san.py (reference ResNetSAN01.py:13-355).
+ResNetSAN01: the depth-completion network of the JAX package's
+networks/depth/resnet_san.py (reference ResNetSAN01.py:13-355).
 
 - ResNet encoder (18/34/50) feature pyramid, NCHW inside;
 - standard or dual-head decoder;
@@ -9,12 +9,18 @@ package's networks/depth/resnet_san.py (reference ResNetSAN01.py:13-355).
       fused = sigmoid(w_i) * (gamma*f + beta) + (1-sigmoid(w_i)) * sparse + b_i
   (reference ResNetSAN01.py:222-259).
 
+- training forward (the module's `training` flag) runs the RGB pass, then
+  the RGB+D pass, so the encoder's BN statistics move twice per step as in
+  flax, and returns a softmax(|w|)-weighted MSE feature-consistency loss
+  between the two skip pyramids (reference ResNetSAN01.py:321-354).
+
 Public layout is NHWC: forward takes rgb [B,H,W,3] and input_depth
 [B,H,W,1] and returns NHWC maps.
 """
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from packnet_sfm_tpu_torch.networks.layers.resnet import (
     ResnetEncoder, DepthDecoder, DualHeadDepthDecoder, resnet_num_ch_enc)
@@ -66,10 +72,11 @@ class ResNetSAN01(nn.Module):
         self.bias = nn.Parameter(torch.zeros(5))
 
     def run_network(self, rgb, input_depth=None):
+        """(decoder outputs, NCHW skip features after any LiDAR fusion)."""
         skip_features = self.encoder(_nchw(rgb))
         if input_depth is not None and self.use_film:
             skip_features = self._fuse_lidar(skip_features, input_depth)
-        return self.decoder(skip_features)
+        return self.decoder(skip_features), skip_features
 
     def _fuse_lidar(self, skip_features, input_depth):
         d, mask = sparsify_depth(input_depth)
@@ -100,10 +107,34 @@ class ResNetSAN01(nn.Module):
         return fused
 
     def forward(self, rgb, input_depth=None):
-        """Eval forward: {'inv_depths': [sigmoid [B,H,W,1]]}, or the
-        dual-head {('integer', i), ('fractional', i): [B,H,W,1]} maps."""
-        outputs = {k: _nhwc(v) for k, v in
-                   self.run_network(rgb, input_depth).items()}
+        """Eval: {'inv_depths': [sigmoid [B,H,W,1]]}, or the dual-head
+        {('integer', i), ('fractional', i): [B,H,W,1]} maps. Training: the
+        four RGB disp scales as 'inv_depths' and, with input_depth, the
+        RGB+D scales as 'inv_depths_rgbd' and the scalar 'depth_loss'."""
+        if not self.training:
+            outputs, _ = self.run_network(rgb, input_depth)
+            outputs = {k: _nhwc(v) for k, v in outputs.items()}
+            if self.use_dual_head:
+                return outputs
+            return {'inv_depths': [outputs[('disp', 0)]]}
+
+        out_rgb, skip_rgb = self.run_network(rgb, None)
         if self.use_dual_head:
-            return outputs
-        return {'inv_depths': [outputs[('disp', 0)]]}
+            output = {k: _nhwc(v) for k, v in out_rgb.items()}
+        else:
+            output = {'inv_depths': [_nhwc(out_rgb[('disp', i)])
+                                     for i in range(4)]}
+        if input_depth is None:
+            return output
+        out_rgbd, skip_rgbd = self.run_network(rgb, input_depth)
+        if self.use_dual_head:
+            # dual-head mixes RGB and RGB+D at the loss level (reference)
+            return output
+        output['inv_depths_rgbd'] = [_nhwc(out_rgbd[('disp', i)])
+                                     for i in range(4)]
+        fw = torch.softmax(self.weight.abs(), dim=0)
+        output['depth_loss'] = sum(
+            fw[i] * F.mse_loss(fr.float(), fr_d.detach().float())
+            for i, (fr_d, fr) in enumerate(zip(skip_rgbd, skip_rgb))
+        ) / len(skip_rgbd)
+        return output

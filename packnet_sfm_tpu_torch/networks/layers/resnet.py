@@ -1,6 +1,7 @@
 """
-ResNet encoder and monodepth2-style decoders, eval mode (BatchNorm on its
-running statistics), NCHW inside.
+ResNet encoder and monodepth2-style decoders, NCHW inside. BatchNorm uses
+batch statistics in training and its running statistics in eval, picked by
+the module's `training` flag as flax's `use_running_average`.
 
 Counterpart of the JAX package's networks/layers/resnet.py. Submodules are
 named after the flax module paths (`Conv_0`, `BatchNorm_0`, `BasicBlock_3`,
@@ -33,14 +34,31 @@ class Conv(nn.Conv2d):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Eval-mode BatchNorm computed in float32 (flax dtype=float32)."""
+    """BatchNorm computed in float32 with flax's semantics (dtype=float32,
+    momentum 0.9, use_fast_variance): in training the batch statistics are
+    uncentered fp32 means, var = max(E[x^2] - E[x]^2, 0), and the running
+    averages move as 0.9 * old + 0.1 * batch with the biased variance.
+    (F.batch_norm's own update would use the unbiased variance.)"""
+
+    flax_momentum = 0.9
 
     def __init__(self, c):
         super().__init__(c, eps=1e-5)
 
     def forward(self, x):
-        return F.batch_norm(x.float(), self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        xf = x.float()
+        if not self.training:
+            return F.batch_norm(xf, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        mean = xf.mean((0, 2, 3))
+        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp(min=0)
+        with torch.no_grad():
+            m = self.flax_momentum
+            self.running_mean.mul_(m).add_((1 - m) * mean)
+            self.running_var.mul_(m).add_((1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None])
 
 
 class BasicBlock(nn.Module):

@@ -1,5 +1,5 @@
 """
-Sparse Auxiliary Network (SAN) LiDAR branch, inference path, NHWC.
+Sparse Auxiliary Network (SAN) LiDAR branch, NHWC, train and eval.
 
 Counterpart of the JAX package's networks/layers/san.py. A sparse conv of
 projected LiDAR is computed as a masked dense conv,
@@ -7,9 +7,11 @@ projected LiDAR is computed as a masked dense conv,
     sparse_conv(x) == mask_out * dense_conv(mask_in * x),
 
 and every tensor here keeps "inactive sites hold exactly 0". Each masked
-conv goes through ops/kernels/san_conv.py `masked_conv2d`: on the card that
-is the hand-written kernel, which skips tiles with no active output site.
-The branch stays NHWC (the kernel's layout); HWIO kernels stay HWIO.
+conv goes through ops/kernels/san_conv.py `masked_conv2d_fn`: on the card
+its forward and its input gradient are the hand-written kernels, which skip
+tiles with no active site. The branch stays NHWC (the kernels' layout);
+HWIO kernels stay HWIO. `MaskedBatchNorm` picks batch or running
+statistics from the module's `training` flag, as flax's `train` argument.
 
 Structure (reference minkowski_encoder.py:12-172): MinkConv2D = optional
 masked max-pool (3, s2) -> 3 parallel masked-conv stacks of 1/2/3 convs ->
@@ -37,7 +39,7 @@ class _MaskedConv(nn.Module):
         self.dtype = dtype
 
     def forward(self, x, mask):
-        return san_conv.masked_conv2d(
+        return san_conv.masked_conv2d_fn(
             x.to(self.dtype).contiguous(), mask,
             self.kernel.to(self.dtype), self.bias.to(self.dtype))
 
@@ -72,17 +74,19 @@ def crop_rows(x, s, Hw):
 
 
 def paste_rows(x, s, H):
-    """Paste [B,Hw,W,C] into a zero canvas of height H at row s."""
-    B, Hw, W, C = x.shape
-    canvas = x.new_zeros((B, H, W, C))
-    canvas[:, s:s + Hw] = x
-    return canvas
+    """Paste [B,Hw,W,C] into a zero canvas of height H at row s (a zero
+    pad, so the gradient is the row crop)."""
+    return F.pad(x, (0, 0, 0, 0, s, H - s - x.shape[1]))
 
 
 def masked_max_pool(x, mask, window=3, stride=2):
     """Max-pool active features; the mask pools by OR (any active site in
     the window). Inactive sites enter the max as -inf, padding too, and
-    windows with no active site come out as 0. NHWC in and out."""
+    windows with no active site come out as 0. NHWC in and out. The
+    gradient goes to the first maximum of a window in row-major order, as
+    reduce_window's select-and-scatter sends it (ties are common: ReLU
+    leaves many active sites at exactly 0); a window with no active site
+    passes none."""
     pad = window // 2
     neg = torch.where(mask > 0, x, torch.full_like(x, float('-inf')))
 
@@ -96,10 +100,17 @@ def masked_max_pool(x, mask, window=3, stride=2):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over active sites (MinkowskiBatchNorm semantics), eval form:
-    (x - mean) * rsqrt(var + eps) * scale + bias, then * mask, in float32."""
+    """BatchNorm over active sites (MinkowskiBatchNorm semantics):
+    (x - mean) * rsqrt(var + eps) * scale + bias, then * mask, in float32.
+
+    In training the statistics come from one fp32 pass of uncentered sums
+    over the pre-masked x (zero at inactive sites) divided by the active
+    count max(sum(mask), 1), var = max(E[x^2] - E[x]^2, 0), and the running
+    averages move as 0.9 * old + 0.1 * batch with the biased variance
+    (the JAX package's san.py:259-269)."""
 
     epsilon = 1e-5
+    momentum = 0.9
 
     def __init__(self, c):
         super().__init__()
@@ -109,7 +120,17 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer('var', torch.ones(c))
 
     def forward(self, x, mask):
-        y = (x.float() - self.mean) * torch.rsqrt(self.var + self.epsilon)
+        xf = x.float()
+        if self.training:
+            cnt = mask.float().sum().clamp(min=1.0)
+            mean = xf.sum((0, 1, 2)) / cnt
+            var = ((xf * xf).sum((0, 1, 2)) / cnt - mean * mean).clamp(min=0)
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                self.var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         return (y * self.scale + self.bias) * mask
 
 

@@ -27,3 +27,15 @@ def interpolate(image, shape, mode='bilinear', align_corners=True):
 def upsample2x_nearest(x):
     """2x nearest upsample [B,H,W,C] -> [B,2H,2W,C]."""
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+def match_scales(image, target_shapes, num_scales, mode='bilinear',
+                 align_corners=True):
+    """`num_scales` resized copies of `image`, one per (H, W) in
+    `target_shapes` (tuples, or tensors [B,H,W,C])."""
+    out = []
+    for t in target_shapes[:num_scales]:
+        hw = t if isinstance(t, tuple) else (t.shape[1], t.shape[2])
+        out.append(interpolate(image, hw, mode=mode,
+                               align_corners=align_corners))
+    return out

@@ -1,10 +1,18 @@
 """
-Eval steps (the JAX package's parallel/train_step.py:233-355): the forward
-alone, and the whole per-batch eval protocol with optional flip-TTA. The
-JAX steps take a (params, batch_stats) state; here the module holds its
-weights, so a step takes the batch alone. Train steps wait for the
-training slice.
+Optimizer, learning-rate schedule, the train step and the eval steps (the
+JAX package's parallel/train_step.py). The JAX steps take a (params,
+batch_stats, opt_state) state; here the module holds its weights and
+statistics and the optimizer its own state, so a step takes the batch.
+
+The train step is forward, loss, backward, the global-norm clip and the
+Adam step, with the JAX step's non-finite guard: when the loss is not
+finite, parameters, Adam's moments and the schedule's count stay as they
+were, while the BN running statistics, which the forward moved, keep the
+move (as `mutable=['batch_stats']` does in JAX). The guard reads the loss
+on the host, one device sync per step.
 """
+
+import math
 
 import torch
 
@@ -15,9 +23,11 @@ from packnet_sfm_tpu_torch.ops.image import flip_lr
 
 
 def make_eval_step(model):
-    """batch -> model outputs, without autograd."""
+    """batch -> model outputs, without autograd. Runs the model in eval mode
+    (the JAX step's train=False), whatever mode it was handed in."""
     @torch.no_grad()
     def eval_step(batch):
+        model.eval()
         return model(batch)
     return eval_step
 
@@ -72,3 +82,116 @@ def make_eval_metrics_step(model, params_cfg, flip_tta=False,
         return modes
 
     return step
+
+
+def make_lr_schedule(scheduler_cfg, base_lr, steps_per_epoch):
+    """count -> lr, per update step: epoch-wise StepLR or cosine (or a
+    constant), with an optional linear warmup over `warmup_epochs`
+    (train_step.py:38-71)."""
+    name = scheduler_cfg.get('name', 'StepLR')
+    spe = max(steps_per_epoch, 1)
+    warmup_steps = int(float(scheduler_cfg.get('warmup_epochs', 0.0)) * spe)
+    if name == 'StepLR':
+        step_size = int(scheduler_cfg.get('step_size', 10))
+        gamma = float(scheduler_cfg.get('gamma', 0.5))
+
+        def sched(count):
+            return base_lr * gamma ** ((count // spe) // step_size)
+    elif name in ('CosineAnnealingLR', 'CosineAnnealing'):
+        t_max = int(scheduler_cfg.get('T_max', 20))
+
+        def sched(count):
+            return base_lr * 0.5 * (1 + math.cos(
+                math.pi * min(count // spe, t_max) / t_max))
+    else:
+        def sched(count):
+            return base_lr
+    if warmup_steps <= 0:
+        return sched
+    return lambda count: min((count + 1) / warmup_steps, 1.0) * sched(count)
+
+
+class Optimizer:
+    """Adam over the depth and pose parameter groups, each with its own lr
+    schedule and optional L2 weight decay (optax's add_decayed_weights
+    before adam is torch Adam's `weight_decay`), after a global-norm clip.
+
+    The clip is optax's clip_by_global_norm: g * max / |g| when |g| >= max,
+    without the +1e-6 of torch.nn.utils.clip_grad_norm_. A parameter left
+    without a gradient gets zeros, as every leaf has a gradient in JAX.
+    `count` is the number of applied updates (optax's schedule count)."""
+
+    def __init__(self, groups, clip_grad=0.0):
+        groups = [g for g in groups if g[0]]
+        self.params = [p for ps, _, _ in groups for p in ps]
+        self.schedules = [sched for _, sched, _ in groups]
+        self.adam = torch.optim.Adam(
+            [{'params': ps, 'lr': sched(0), 'weight_decay': wd}
+             for ps, sched, wd in groups], betas=(0.9, 0.999), eps=1e-8)
+        self.clip_grad = float(clip_grad or 0.0)
+        self.count = 0
+
+    def zero_grad(self):
+        self.adam.zero_grad(set_to_none=True)
+
+    def step(self):
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.clip_grad > 0:
+            grads = [p.grad for p in self.params]
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+            torch._foreach_mul_(grads, torch.where(
+                norm < self.clip_grad, 1.0, self.clip_grad / norm))
+        for group, sched in zip(self.adam.param_groups, self.schedules):
+            group['lr'] = sched(self.count)
+        self.adam.step()
+        self.count += 1
+
+
+def make_optimizer(model, optimizer_cfg, scheduler_cfg, steps_per_epoch,
+                   clip_grad=0.0):
+    """The depth/pose groups of `model` (parameters under `pose_net` are
+    the pose group) with their lr and weight decay (train_step.py:90-124).
+    Only Adam is ported; grad accumulation and EMA are not yet."""
+    name = optimizer_cfg.get('name', 'Adam')
+    if name.lower() != 'adam':
+        raise NotImplementedError('optimizer {!r} is not ported yet'.format(
+            name))
+    if int(optimizer_cfg.get('grad_accumulation_steps', 1) or 1) > 1:
+        raise NotImplementedError('grad accumulation is not ported yet')
+    if float(optimizer_cfg.get('ema_decay', 0.0)) > 0:
+        raise NotImplementedError('EMA of parameters is not ported yet')
+    named = list(model.named_parameters())
+    groups = []
+    for key in ('depth', 'pose'):
+        cfg = optimizer_cfg.get(key, {})
+        params = [p for n, p in named
+                  if (n.split('.')[0] == 'pose_net') == (key == 'pose')]
+        groups.append((params,
+                       make_lr_schedule(scheduler_cfg,
+                                        float(cfg.get('lr', 2e-4)),
+                                        steps_per_epoch),
+                       float(cfg.get('weight_decay', 0.0))))
+    return Optimizer(groups, clip_grad)
+
+
+def make_train_step(model, optimizer, generator=None):
+    """step(batch, progress=0.0, epoch=0) -> {'loss', **metrics} (detached
+    tensors). Runs the model in training mode; `generator` feeds its random
+    lr-flip. A non-finite loss skips the update (see the module note)."""
+    def train_step(batch, progress=0.0, epoch=0):
+        model.train()
+        optimizer.zero_grad()
+        out = model(batch, progress=progress, epoch=epoch,
+                    generator=generator)
+        loss = out['loss']
+        loss.backward()
+        if bool(torch.isfinite(loss)):
+            optimizer.step()
+        else:
+            optimizer.zero_grad()
+        return {'loss': loss.detach(),
+                **{k: v.detach() for k, v in out['metrics'].items()}}
+    return train_step

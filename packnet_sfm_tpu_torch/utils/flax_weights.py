@@ -42,10 +42,12 @@ def _target(mod, leaf, value):
     return leaf, value
 
 
-def load_flax_variables(model, variables):
-    """Copy a flax {'params', 'batch_stats'} tree (nested dicts of arrays)
-    into `model` in place; returns the model. Raises KeyError on missing or
-    unexpected keys and ValueError on a shape mismatch."""
+def flax_state_dict(model, variables):
+    """The flax {'params', 'batch_stats'} tree (nested dicts of arrays) as
+    {`model` state-dict key: numpy array in the torch layout}. A tree of
+    the same structure (gradients, updated statistics) maps the same way.
+    Raises KeyError on missing or unexpected keys and ValueError on a
+    shape mismatch."""
     extra_cols = set(variables) - {'params', 'batch_stats'}
     if extra_cols:
         raise KeyError('unexpected variable collections: {}'.format(
@@ -74,7 +76,14 @@ def load_flax_variables(model, variables):
     if missing or unexpected:
         raise KeyError('flax -> torch weights: missing {}; unexpected {}'
                        .format(missing, sorted(unexpected)))
+    return values
+
+
+def load_flax_variables(model, variables):
+    """Copy a flax {'params', 'batch_stats'} tree into `model` in place;
+    returns the model. Raises as `flax_state_dict` does."""
+    state = model.state_dict()
     with torch.no_grad():
-        for key, arr in values.items():
+        for key, arr in flax_state_dict(model, variables).items():
             state[key].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
     return model

@@ -138,7 +138,7 @@ def test_masked_batch_norm_eval():
     jm = jsan.MaskedBatchNorm()
     v = randomize(init(jm, x, mask, train=False), 6)
     want = apply(jm, v, x, mask, train=False)
-    tm = load_flax_variables(tsan.MaskedBatchNorm(16), v)
+    tm = load_flax_variables(tsan.MaskedBatchNorm(16), v).eval()
     close(tm(to_torch(x), to_torch(mask)).detach(), want)
 
 
@@ -148,7 +148,7 @@ def test_minkowski_stage_with_film():
     jm = jsan.MinkowskiEncoder(channels=[8], rgb_channels=[8])
     v = randomize(init(jm, 0, d, mask, False), 8)
     dense, m2, gamma, beta = jm.apply(v, 0, d, mask, False)
-    tm = load_flax_variables(tsan.MinkowskiEncoder([8], [8]), v)
+    tm = load_flax_variables(tsan.MinkowskiEncoder([8], [8]), v).eval()
     with torch.no_grad():
         t_dense, t_m2, t_gamma, t_beta = tm(0, to_torch(d), to_torch(mask))
     scale = float(np.abs(dense).max())
