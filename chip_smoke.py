@@ -4,7 +4,8 @@ Drive the PyTorch port (packnet_sfm_tpu_torch) on one NVIDIA GPU and check
 it, with nothing of JAX:
 
 1. print the card (nvidia-smi name and power limit), the torch/CUDA
-   versions, and build the CUDA kernels from the checkout's sources;
+   versions, and build the CUDA kernels from the checkout's sources (one
+   nvcc per source, all started together);
 2. hold the masked-conv forward kernel against its plain PyTorch version at
    every shape the slice's 30 SAN convs take at 384x640 B1 (on the eval
    path's own LiDAR masks) and at edge cases, in float32 (TF32 off, atol =
@@ -17,6 +18,16 @@ it, with nothing of JAX:
    mask, and (b) the whole autograd Function (forward kernel, dgrad kernel,
    dW/db) against plain autograd through the plain forward (F.conv2d's own
    backward), on dx, dW and db in float32 and in bfloat16;
+   then the self-supervised slice's kernels (phase S below): the warp at
+   the slice's own grids and sources (B8, grid 768x640, from real steps'
+   depths and poses, bf16 and float32 sources) and at edge cases (grids far
+   outside the image, exact integer coordinates, the last row and column,
+   'border', Ho != H, odd W, one channel), the photometric forward and
+   backward at the step's own [8,3,194,642] inputs and at edge cases
+   (identical images, which must give exact zeros, constant images, H and
+   W not multiples of the tile), and both autograd Functions against plain
+   autograd through the plain versions (dgrid; dx, dy through the reflect
+   fold);
 3. run the eval path: eval.main on configs/train_resnet_san_ncdb_640x384.yaml
    (ResNet18-SAN, FiLM at scale 0, bf16 convs) with flip-TTA, with the
    launch counts reset just before and read just after (30 forward
@@ -29,15 +40,32 @@ it, with nothing of JAX:
    below the first, every loss finite and no step skipped by the guard; and
    one float32 step's loss and gradients through the kernels against the
    same step through the plain forward under plain autograd;
+   then the self-supervised path (phase S): train.main on
+   packnet_sfm_tpu_torch/configs/selfsup_kitti_192x640.yaml at B8 192x640,
+   (i) as written (bf16 photometric maps; 10 steps on one batch, the last
+   loss below the first) and (ii) with float32 maps through the fused
+   kernels (3 steps), the counts reset just before and read just after
+   each run: per step 2 warp launches (one per context), under (ii) 10
+   photometric forward (4 warped maps and the automask's map per context)
+   and 8 backward launches (the automask maps need no gradient), and 30 /
+   27 masked-conv launches; never an image cotangent through the warp;
+   and one float32 step through every kernel against plain autograd
+   through every plain version, with the reversed batch as the control;
 4. (d) time eval img/s at B1 and the train step and img/s at B8, the
    forward kernel at the eval shapes and both kernels at the train shapes
    beside their plain versions, the library yardstick (one cuDNN call the
    port never makes: F.conv2d, torch.nn.grad.conv2d_input) and the bound
-   for the work the data needs, and the dW library time per step;
-5. (e) print the kernels line with both kernels, then the device line last.
+   for the work the data needs, and the dW library time per step; the
+   self-supervised step's ms and img/s under (i) and (ii); the warp and
+   photometric kernels over one step's launches beside their plain
+   versions, F.grid_sample (the warp's yardstick: out only, no A/B) and
+   their bounds;
+5. (e) print the kernels line with all five kernels, then the device line
+   last.
 
 Run with no arguments: `python3 chip_smoke.py`. Exits nonzero without a
-card. Extra output goes to chiprun_out/chip_smoke_convs.json.
+card. Extra output goes to chiprun_out/chip_smoke_convs.json and
+chiprun_out/chip_smoke_selfsup.json.
 """
 
 import contextlib
@@ -64,6 +92,12 @@ TRAIN_RUNS = ((4, 2), (10, 1))        # (steps, batches) of the two runs
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_REL = 1e-1
 TRAIN_GRAD_NORM = 2e-2
+SELFSUP_CONFIG = 'packnet_sfm_tpu_torch/configs/selfsup_kitti_192x640.yaml'
+FP32_MAPS = ['tpu.photometric_dtype', 'float32', 'tpu.use_pallas', True]
+WARPS_PER_STEP = 2                     # one per context frame
+PHOTO_FWD_PER_STEP = 10                # (4 scales + automask) x 2 contexts
+PHOTO_BWD_PER_STEP = 8                 # the automask maps need no gradient
+SELFSUP_RUNS = (('i', None, 10), ('ii', FP32_MAPS, 3))
 
 
 def log(*a):
@@ -106,17 +140,44 @@ def check_kernel(name, got, want, dtype):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Run every masked conv as the plain forward under plain autograd
-    (F.conv2d and its own backward): no kernel and no autograd Function,
-    so dx, dW and db all come from other code than the port's (the SAN
-    layer looks `masked_conv2d_fn` up at call time)."""
-    from packnet_sfm_tpu_torch.ops.kernels import san_conv
-    saved = san_conv.masked_conv2d_fn
-    san_conv.masked_conv2d_fn = san_conv.masked_conv2d_reference
+    """Run every kernel's op as its plain version under plain autograd: the
+    masked conv as F.conv2d with its own backward, the warp as the gather
+    version (dgrid by autograd through floor, the taps and the bilinear
+    weights), the photometric map as the plain forward (its gradient by
+    autograd through the box sums). No kernel and no autograd Function, so
+    every gradient comes from other code than the port's (the callers look
+    the ops up at call time)."""
+    from packnet_sfm_tpu_torch.ops.kernels import photometric, san_conv, warp
+    swaps = ((san_conv, 'masked_conv2d_fn', san_conv.masked_conv2d_reference),
+             (warp, 'grid_sample_fn', warp.grid_sample_reference),
+             (photometric, 'photometric_map_fn',
+              photometric.photometric_map_reference))
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
     try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
         yield
     finally:
-        san_conv.masked_conv2d_fn = saved
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def recording(module, name, store):
+    """Append the arguments of every call of module.<name> (a kernel's
+    launch function) to `store`, tensors detached."""
+    saved = getattr(module, name)
+
+    def wrapped(*args):
+        store.append(tuple(a.detach() if hasattr(a, 'detach') else a
+                           for a in args))
+        return saved(*args)
+
+    setattr(module, name, wrapped)
+    try:
+        yield store
+    finally:
+        setattr(module, name, saved)
 
 
 def path_convs(model, batch, train=False):
@@ -235,7 +296,8 @@ def main():
     import torch.nn.functional as F
     from packnet_sfm_tpu_torch import eval as port_eval
     from packnet_sfm_tpu_torch import train as port_train
-    from packnet_sfm_tpu_torch.ops.kernels import build, san_conv
+    from packnet_sfm_tpu_torch.ops.kernels import (
+        build, photometric, san_conv, warp)
     from packnet_sfm_tpu_torch.parallel.train_step import (
         make_eval_step, make_eval_metrics_step)
 
@@ -248,27 +310,33 @@ def main():
     log('torch {} cuda {} python {}'.format(
         torch.__version__, torch.version.cuda, sys.version.split()[0]))
     t0 = time.time()
-    lib_path, ptxas = build.build('san_conv')
-    log('kernel build: {:.1f} s -> {}'.format(time.time() - t0,
-                                               os.path.relpath(lib_path)))
-    for line in ptxas.splitlines():
-        if 'registers' in line or 'spill' in line or 'Compiling' in line:
-            log('  ptxas:', line.strip())
+    built = build.build_all(['san_conv', 'warp', 'photometric'])
+    log('kernel build (3 sources in parallel): {:.1f} s'.format(
+        time.time() - t0))
+    for name, (lib_path, ptxas) in built.items():
+        log('  {} -> {}'.format(name, os.path.relpath(lib_path)))
+        for line in ptxas.splitlines():
+            if 'registers' in line or 'spill' in line or 'Compiling' in line:
+                log('  ptxas:', line.strip())
     # the comparisons below are against float32 math: no TF32 anywhere
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(0)
     counts = {'fwd': 0, 'dgrad': 0}
+    counters = {'san_fwd': san_conv.masked_conv2d,
+                'san_dgrad': san_conv.masked_conv2d_dgrad,
+                'warp': warp.bilinear_warp,
+                'photo_fwd': photometric.photometric_fwd,
+                'photo_bwd': photometric.photometric_bwd}
 
     def reset_counts():
-        san_conv.masked_conv2d.launches = 0
-        san_conv.masked_conv2d_dgrad.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
 
     def read_counts():
         torch.cuda.synchronize()
-        return (san_conv.masked_conv2d.launches,
-                san_conv.masked_conv2d_dgrad.launches)
+        return {k: fn.launches for k, fn in counters.items()}
 
     config, model = port_eval.build(CONFIG, 'cuda', seed=0)
     dtype = model.depth_net.encoder.Conv_0.dtype
@@ -387,12 +455,13 @@ def main():
     flat = port_eval.main(CONFIG, device='cuda', batch_size=1,
                           n_batches=N_EVAL_BATCHES, seed=0,
                           overrides=['model.params.flip_tta', True])
-    eval_launches, eval_dgrads = read_counts()
-    want_launches = 2 * CONVS_PER_FORWARD * N_EVAL_BATCHES
-    if (eval_launches, eval_dgrads) != (want_launches, 0):
-        raise AssertionError('eval path launched the kernels {} / {} times, '
-                             'expected {} / 0'.format(
-                                 eval_launches, eval_dgrads, want_launches))
+    got = read_counts()
+    eval_launches = got['san_fwd']
+    want = dict.fromkeys(counters, 0)
+    want['san_fwd'] = 2 * CONVS_PER_FORWARD * N_EVAL_BATCHES
+    if got != want:
+        raise AssertionError('eval path launched the kernels {} times, '
+                             'expected {}'.format(got, want))
     if len(flat) != 6 * 7 + 1 or not all(np.isfinite(v)
                                          for v in flat.values()):
         raise AssertionError('metrics not finite: {}'.format(flat))
@@ -426,14 +495,17 @@ def main():
         t0 = time.time()
         run = port_train.main(CONFIG, device='cuda', n_steps=n_steps,
                               n_batches=n_batches, seed=0)
-        launches = read_counts()
+        got = read_counts()
         wall = time.time() - t0
         losses = run['losses']
-        want = (CONVS_PER_FORWARD * n_steps, DGRADS_PER_STEP * n_steps)
-        if launches != want:
+        want = dict.fromkeys(counters, 0)
+        want.update(san_fwd=CONVS_PER_FORWARD * n_steps,
+                    san_dgrad=DGRADS_PER_STEP * n_steps)
+        if got != want:
             raise AssertionError('train path ({} steps) launched the kernels '
-                                 '{} times (forward, dgrad), expected {}'
-                                 .format(n_steps, launches, want))
+                                 '{} times, expected {}'.format(
+                                     n_steps, got, want))
+        launches = (got['san_fwd'], got['san_dgrad'])
         if not all(np.isfinite(losses)) or \
                 run['trainer'].optimizer.count != n_steps:
             raise AssertionError('train path: non-finite loss or a step '
@@ -487,6 +559,13 @@ def main():
             norm > TRAIN_GRAD_NORM or zero_leaf > 1e-6:
         raise AssertionError('train step through the kernels disagrees with '
                              'the plain versions')
+
+    # ---------------------------------------------------------------- S
+    selfsup_rows, selfsup_launches = selfsup_phase(card, dev, gen,
+                                                   reset_counts, read_counts)
+    train_fwd, train_dgrad = counts['fwd'], counts['dgrad']
+    counts['fwd'] += selfsup_launches['san_fwd']
+    counts['dgrad'] += selfsup_launches['san_dgrad']
 
     # ---------------------------------------------------------------- 4
     step = make_eval_step(model)
@@ -619,8 +698,9 @@ def main():
         'name': 'san_masked_conv2d', 'route': 'cuda',
         'source': 'packnet_sfm_tpu_torch/csrc/san_conv.cu',
         'replaces': 'packnet_sfm_tpu/ops/pallas/san_conv.py:53',
-        'launches': counts['fwd'],
-        'launches_by_path': {'eval': eval_launches, 'train': counts['fwd']},
+        'launches': eval_launches + counts['fwd'],
+        'launches_by_path': {'eval': eval_launches, 'train': train_fwd,
+                             'selfsup': selfsup_launches['san_fwd']},
         'max_abs_err': max_err['float32'],
         'max_abs_err_bf16': max_err['bfloat16'],
         'timed_as': '30 launches of one B1 {}x{} eval forward, {}'.format(
@@ -635,18 +715,422 @@ def main():
         'source': 'packnet_sfm_tpu_torch/csrc/san_conv.cu',
         'replaces': 'packnet_sfm_tpu/ops/pallas/san_conv.py:184',
         'launches': counts['dgrad'],
+        'launches_by_path': {'train': train_dgrad,
+                             'selfsup': selfsup_launches['san_dgrad']},
         'max_abs_err': dmax_err['float32'],
         'max_abs_err_bf16': dmax_err['bfloat16'],
         'timed_as': '27 launches of one B{} {}x{} train step, {}'.format(
             train_bs, shape[0], shape[1], dname),
         'ms': dg_tot['ms'], 'plain_ms': dg_tot['plain_ms'],
         'bound_ms': dg_tot['bound_ms'], 'bound_by': by(dg_tot),
-        'library_ms': dg_tot['library_ms']}]}))
+        'library_ms': dg_tot['library_ms']}] + selfsup_rows}))
     log(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def reversed_batch(batch):
+    """The batch's images in reverse order (lists of frames too)."""
+    return {k: [c.flip(0) for c in v] if isinstance(v, list) else v.flip(0)
+            for k, v in batch.items()}
+
+
+def edge_grid(B, Ho, Wo, H, W, gen):
+    """Normalised coordinates on the card: 70% in and around the image, 10%
+    far outside (|x| up to 1e7, as a depth clipped at 1e-5 gives), 10% on
+    exact integer pixels, 10% on the last row or column."""
+    import torch
+    dev = gen.device
+    g = torch.rand(B, Ho, Wo, 2, device=dev, generator=gen) * 2.6 - 1.3
+    flat = g.view(-1, 2)
+    n = flat.shape[0]
+    idx = torch.randperm(n, device=dev, generator=gen)
+    far, ints, edge = idx[:n // 10], idx[n // 10:n // 5], idx[n // 5:n * 3 // 10]
+    vals = torch.tensor([-1e7, -3e5, 2e6, 1e7], device=dev)
+    flat[far] = vals[torch.randint(0, 4, (len(far), 2), device=dev,
+                                   generator=gen)]
+    px = torch.stack([torch.randint(-1, W + 1, (len(ints),), device=dev,
+                                    generator=gen),
+                      torch.randint(-1, H + 1, (len(ints),), device=dev,
+                                    generator=gen)], 1).float()
+    flat[ints] = 2.0 * px / torch.tensor([W - 1.0, H - 1.0], device=dev) - 1.0
+    flat[edge[0::2], 0] = 1.0
+    flat[edge[1::2], 1] = 1.0
+    return g
+
+
+def selfsup_phase(card, dev, gen, reset_counts, read_counts):
+    """Phase S: the self-supervised slice's kernels, its path and its
+    timings (see the module note). Returns the kernels-line rows of the
+    warp and photometric kernels, the masked-conv launches of its runs and
+    a summary for chiprun_out/chip_smoke_selfsup.json."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from packnet_sfm_tpu_torch import eval as port_eval
+    from packnet_sfm_tpu_torch import train as port_train
+    from packnet_sfm_tpu_torch.config import parse_train_config
+    from packnet_sfm_tpu_torch.ops.kernels import photometric, warp
+
+    config = parse_train_config(SELFSUP_CONFIG)
+    shape = port_eval.image_shape(config)
+    bs = int(config.datasets.train.batch_size)
+    batch = port_eval.make_batches(shape, bs, 1, seed=0, device='cuda',
+                                   contexts=port_train.n_contexts(config))[0]
+
+    # the step's own kernel inputs: one training step of (i) and of (ii)
+    rec = {'warp_i': [], 'warp_ii': [], 'fwd': [], 'bwd': []}
+    for name, over in (('i', None), ('ii', FP32_MAPS)):
+        _, model = port_train.build(SELFSUP_CONFIG, 'cuda', seed=0,
+                                    overrides=over)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(recording(warp, '_launch',
+                                          rec['warp_' + name]))
+            if name == 'ii':
+                stack.enter_context(recording(photometric, '_launch_fwd',
+                                              rec['fwd']))
+                stack.enter_context(recording(photometric, '_launch_bwd',
+                                              rec['bwd']))
+            model(batch)['loss'].backward()
+        del model
+    torch.cuda.synchronize()
+    if (len(rec['warp_i']), len(rec['warp_ii']), len(rec['fwd']),
+            len(rec['bwd'])) != (WARPS_PER_STEP, WARPS_PER_STEP,
+                                 PHOTO_FWD_PER_STEP, PHOTO_BWD_PER_STEP):
+        raise AssertionError('one selfsup step launched the warp {} / {} '
+                             'times and the photometric kernels {} / {}'
+                             .format(len(rec['warp_i']), len(rec['warp_ii']),
+                                     len(rec['fwd']), len(rec['bwd'])))
+
+    # the warp kernel against its plain version. Same formulas in the same
+    # order, no FMA contraction: expected bit for bit; held to atol = rtol
+    # = 1e-6 (x max|ref| for the atol) so a library's rounding change in
+    # the plain side's elementwise ops would not read as a fault
+    warp_err = {'float32': 0.0, 'bfloat16': 0.0}
+    exact = [0, 0]
+    cases = [(img, grid, mode, 'step ' + tag)
+             for tag in ('i', 'ii') for img, grid, mode in rec['warp_' + tag]]
+    for B, H, W, C, Ho in ((2, 37, 53, 3, 111), (1, 8, 9, 1, 8)):
+        grid = edge_grid(B, Ho, W, H, W, gen)
+        for dt in (torch.float32, torch.bfloat16):
+            img = torch.rand(B, H, W, C, device=dev, generator=gen).to(dt)
+            for mode in ('zeros', 'border'):
+                cases.append((img, grid, mode, 'edge {}x{}->{}'.format(
+                    H, W, Ho)))
+    for img, grid, mode, tag in cases:
+        got = warp.bilinear_warp(img, grid, mode)
+        torch.cuda.synchronize()
+        want = warp.bilinear_warp_reference(img, grid, mode)
+        key = str(img.dtype).replace('torch.', '')
+        for nm, a, b in zip(('out', 'A', 'B'), got, want):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError('warp {} {}: {} {} against {} {}'.format(
+                    tag, nm, a.dtype, tuple(a.shape), b.dtype,
+                    tuple(b.shape)))
+            err = check_close('warp {} {} {} {}'.format(tag, key, mode, nm),
+                              a, b, 1e-6 * max(float(b.float().abs().max()),
+                                               1e-30), 1e-6)
+            warp_err[key] = max(warp_err[key], err)
+            exact[0] += int((a == b).sum())
+            exact[1] += a.numel()
+    log('warp kernel vs plain: {} cases x (out, A, B) ok, max |err| fp32 '
+        '{:.3e} bf16 {:.3e}, bit-equal {:.6f} of the values'.format(
+            len(cases), warp_err['float32'], warp_err['bfloat16'],
+            exact[0] / exact[1]))
+
+    # the photometric kernels against their plain versions: the same
+    # formulas in the same order (float32 sums of the plain side may round
+    # differently): forward atol = rtol = 1e-6; backward atol 1e-6 x
+    # max|ref|, rtol 1e-5. Identical images must give exact zeros both ways
+    pcases = [(xp, yp, g) for (xp, yp, g, *_) in rec['bwd']]
+    pcases += [(xp, yp, None) for (xp, yp, *_) in rec['fwd']]
+    small = torch.rand(2, 3, 15, 47, device=dev, generator=gen)
+    pcases += [(small, torch.rand_like(small), torch.rand(
+        2, 13, 45, device=dev, generator=gen)),
+        (torch.full_like(small, 0.3), torch.full_like(small, 0.7),
+         torch.rand(2, 13, 45, device=dev, generator=gen))]
+    photo_err = {'fwd': 0.0, 'bwd': 0.0}
+    for xp, yp, g in pcases:
+        got = photometric.photometric_fwd(xp, yp)
+        torch.cuda.synchronize()
+        want = photometric.photometric_fwd_reference(xp, yp)
+        photo_err['fwd'] = max(photo_err['fwd'], check_close(
+            'photometric fwd {}'.format(tuple(xp.shape)), got, want, 1e-6,
+            1e-6))
+        if g is None:
+            continue
+        got = photometric.photometric_bwd(xp, yp, g)
+        torch.cuda.synchronize()
+        want = photometric.photometric_bwd_reference(xp, yp, g)
+        for a, b in zip(got, want):
+            photo_err['bwd'] = max(photo_err['bwd'], check_close(
+                'photometric bwd {}'.format(tuple(xp.shape)), a, b,
+                1e-6 * float(b.abs().max()), 1e-5))
+    xp, _, g = pcases[0]
+    same = [photometric.photometric_fwd(xp, xp),
+            *photometric.photometric_bwd(xp, xp, g)]
+    torch.cuda.synchronize()
+    if any(bool(v.any()) for v in same):
+        raise AssertionError('photometric kernels: identical images must '
+                             'give exact zeros')
+    log('photometric kernels vs plain: {} forward and {} backward cases ok, '
+        'max |err| fwd {:.3e} bwd {:.3e}; identical images give exact '
+        'zeros'.format(len(pcases), len(pcases) - len(rec['fwd']),
+                       photo_err['fwd'], photo_err['bwd']))
+
+    # the autograd Functions against plain autograd through the plain
+    # versions: dgrid (the Function's elementwise math over A and B against
+    # autograd through floor, taps and weights) and dx, dy through the
+    # reflect fold. Float32 in another order: atol 1e-5 x max|ref|, rtol
+    # 1e-4. A bf16 source: the kernels' bf16 rule (rtol 2e-2, atol 1e-2 x
+    # max|ref|), because the Function's B map rounds the tap differences
+    # p10 - p00 and p11 - p01 to bf16, as the JAX `_gs_derivs` does, while
+    # autograd through the out formula differentiates bot - top formed in
+    # float32: dgrid's y half differs by one bf16 rounding of a difference
+    fn_err = {}
+    for img, grid, mode in rec['warp_i'][:1] + rec['warp_ii'][:1]:
+        grads = []
+        gout = torch.randn(img.shape[:1] + grid.shape[1:3] + img.shape[3:],
+                           device=dev, generator=gen).to(img.dtype)
+        for fn in (warp.grid_sample_fn, warp.grid_sample_reference):
+            leaf = grid.clone().requires_grad_(True)
+            fn(img, leaf, mode).backward(gout)
+            grads.append(leaf.grad)
+        key = 'dgrid ' + str(img.dtype).replace('torch.', '')
+        if img.dtype == torch.float32:
+            err = check_close(key, grads[0], grads[1], 1e-5 * float(
+                grads[1].abs().max()), 1e-4)
+        else:
+            err = check_kernel(key, grads[0], grads[1], img.dtype)
+        fn_err[key] = err / float(grads[1].abs().max())
+    xp, yp = rec['fwd'][0][:2]
+    x = xp[:, :, 1:-1, 1:-1].permute(0, 2, 3, 1).contiguous()
+    y = yp[:, :, 1:-1, 1:-1].permute(0, 2, 3, 1).contiguous()
+    gout = torch.rand(x.shape[:3] + (1,), device=dev, generator=gen)
+    grads = []
+    for fn in (photometric.photometric_map_fn,
+               photometric.photometric_map_reference):
+        leaves = [x.clone().requires_grad_(True),
+                  y.clone().requires_grad_(True)]
+        fn(*leaves).backward(gout)
+        grads.append([t.grad for t in leaves])
+    for nm, a, b in zip(('dx', 'dy'), *grads):
+        key = 'photometric ' + nm
+        fn_err[key] = check_close(key, a, b, 1e-5 * float(b.abs().max()),
+                                  1e-4) / float(b.abs().max())
+    torch.cuda.synchronize()
+    log('autograd Functions vs plain autograd, max |err| / max|ref|: ' +
+        ', '.join('{} {:.3e}'.format(k, v) for k, v in fn_err.items()))
+
+    # the path: train.main on the slice's YAML, (i) and (ii)
+    warp.WarpFunction.image_grads = 0
+    runs, trainers, launches_by_run = [], {}, {}
+    for name, over, n_steps in SELFSUP_RUNS:
+        reset_counts()
+        t0 = time.time()
+        run = port_train.main(SELFSUP_CONFIG, device='cuda', n_steps=n_steps,
+                              n_batches=1, seed=0, overrides=over)
+        got = read_counts()
+        wall = time.time() - t0
+        fp32 = over is not None
+        want = {'san_fwd': CONVS_PER_FORWARD * n_steps,
+                'san_dgrad': DGRADS_PER_STEP * n_steps,
+                'warp': WARPS_PER_STEP * n_steps,
+                'photo_fwd': PHOTO_FWD_PER_STEP * n_steps if fp32 else 0,
+                'photo_bwd': PHOTO_BWD_PER_STEP * n_steps if fp32 else 0}
+        if got != want:
+            raise AssertionError('selfsup path ({}) launched {}, expected {}'
+                                 .format(name, got, want))
+        losses = run['losses']
+        if not all(np.isfinite(losses)) or \
+                run['trainer'].optimizer.count != n_steps:
+            raise AssertionError('selfsup path ({}): non-finite loss or a '
+                                 'step skipped: {}'.format(name, losses))
+        if n_steps >= 10 and not losses[-1] < losses[0]:
+            raise AssertionError('selfsup loss did not fall over {} steps on '
+                                 'one batch: {}'.format(n_steps, losses))
+        launches_by_run[name] = got
+        trainers[name] = (run['trainer'], run['batches'][0])
+        runs.append({'run': name, 'overrides': over, 'steps': n_steps,
+                     'losses': losses, 'wall_s': wall, 'launches': got})
+        log('train.main selfsup ({}) B{} {}x{}: {} steps, launches {}, '
+            'losses {}'.format(name, bs, shape[0], shape[1], n_steps, got,
+                               ['{:.4f}'.format(v) for v in losses]))
+        del run
+    if warp.WarpFunction.image_grads:
+        raise AssertionError('the selfsup path computed an image cotangent '
+                             'through the warp')
+
+    # one float32 step through every kernel, through every plain version
+    # under plain autograd, and (the control) plain on the reversed batch
+    _, fmodel = port_train.build(SELFSUP_CONFIG, 'cuda', seed=0, overrides=[
+        'tpu.compute_dtype', 'float32'] + FP32_MAPS)
+    step_grads = []
+    for plain, b in ((False, batch), (True, batch),
+                     (True, reversed_batch(batch))):
+        fmodel.zero_grad(set_to_none=True)
+        with plain_versions() if plain else contextlib.nullcontext():
+            out = fmodel(b)
+            out['loss'].backward()
+        step_grads.append((float(out['loss'].detach()),
+                           {n: p.grad.detach().clone()
+                            for n, p in fmodel.named_parameters()}))
+        del out
+    del fmodel
+    (loss_k, gk), (loss_p, gp), (_, gr) = step_grads
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_check = compare_grads(gk, gp)
+    order_check = compare_grads(gr, gp)
+    log('selfsup step fp32 B{}, kernels vs plain: loss {:.6f} vs {:.6f} (rel '
+        '{:.2e}); per gradient leaf max|err|/max|g| {:.3e} (at {}), '
+        '|err|/|g| {:.3e}; zero leaves {:.2e} of the largest gradient. '
+        'Plain vs plain on the reversed batch: {:.3e} (at {}), {:.3e}, '
+        '{:.2e}'.format(bs, loss_k, loss_p, loss_rel, *grad_check,
+                        *order_check))
+    rel, _, norm, zero_leaf = grad_check
+    if loss_rel > TRAIN_LOSS_RTOL or rel > TRAIN_GRAD_REL or \
+            norm > TRAIN_GRAD_NORM or zero_leaf > 1e-6:
+        raise AssertionError('selfsup step through the kernels disagrees '
+                             'with the plain versions')
+
+    # timings: the step under (i) and (ii)
+    step_ms = {}
+    for name, (trainer, run_batch) in trainers.items():
+        for _ in range(2):
+            trainer.train_step(run_batch)
+        torch.cuda.synchronize()
+        n_timed = 5
+        t0 = time.perf_counter()
+        for _ in range(n_timed):
+            trainer.train_step(run_batch)
+        torch.cuda.synchronize()
+        step_ms[name] = (time.perf_counter() - t0) * 1e3 / n_timed
+        log('selfsup train step ({}) B{} {}x{}: {:.3f} ms, {:.2f} img/s'
+            .format(name, bs, shape[0], shape[1], step_ms[name],
+                    bs * 1e3 / step_ms[name]))
+    del trainers
+
+    # the kernels over one step's launches (each launch on its own inputs,
+    # so the 50 MB L2 holds at most the last of them), the plain versions,
+    # the yardstick and the bound from this run's inputs
+    def over_step(fn, items, iters=10):
+        return cuda_time_ms(lambda: [fn(*a) for a in items], iters=iters)
+
+    with torch.no_grad():
+        w_items = rec['warp_i']
+        w_ms = over_step(warp._launch, w_items)
+        w_plain = over_step(warp.bilinear_warp_reference, w_items, 5)
+        # F.grid_sample samples out only (no A, B), and takes the grid in
+        # the image's dtype: timed on a float32 copy of each source
+        lib_items = [(img.float().permute(0, 3, 1, 2), grid, mode)
+                     for img, grid, mode in w_items]
+        w_lib = over_step(lambda im, gr, md: F.grid_sample(
+            im, gr, mode='bilinear', padding_mode=md, align_corners=True),
+            lib_items)
+        f_items = [(xp, yp, 0.85, 1e-4, 9e-4) for xp, yp, *_ in rec['fwd']]
+        f_ms = over_step(photometric._launch_fwd, f_items)
+        f_plain = over_step(photometric.photometric_fwd_reference,
+                            [a[:2] for a in f_items], 5)
+        b_items = [(xp, yp, g, 0.85, 1e-4, 9e-4)
+                   for xp, yp, g, *_ in rec['bwd']]
+        b_ms = over_step(photometric._launch_bwd, b_items)
+        b_plain = over_step(photometric.photometric_bwd_reference,
+                            [a[:3] for a in b_items], 5)
+
+    def warp_bound(img, grid, _mode):
+        B, H, W, C = img.shape
+        n_out = grid.numel() // 2
+        esize = img.element_size()
+        nbytes = grid.numel() * 4 + n_out * C * (esize + 8) + img.numel() * \
+            esize
+        # coordinates ~12 FLOPs a pixel, ~16 a channel for taps and weights
+        return bound(nbytes, n_out * (12 + 16 * C), 'float32')
+
+    def photo_bound(xp, n_maps_moved, flops_per_px):
+        """xp-sized maps moved (read or written) plus one [B,H,W] map."""
+        B, C, Hp, Wp = xp.shape
+        n = B * (Hp - 2) * (Wp - 2)
+        return bound((n_maps_moved * xp.numel() + n) * 4, n * flops_per_px,
+                     'float32')
+
+    wb = [warp_bound(*a) for a in w_items]
+    # forward: xp, yp in, photo out; ~100 FLOPs a pixel and channel
+    fb = [photo_bound(a[0], 2, 300) for a in f_items]
+    # backward: xp, yp, g in, dxp, dyp out; ~180 FLOPs a pixel and channel
+    bb = [photo_bound(a[0], 4, 540) for a in b_items]
+
+    def total(bounds):
+        b_all = sum(b[0] for b in bounds)
+        by = 'bytes' if sum(b[1] for b in bounds) > sum(b[2] for b in bounds) \
+            else 'operations'
+        return b_all, by
+
+    times = {'warp': (w_ms, w_plain, w_lib, *total(wb)),
+             'photometric_fwd': (f_ms, f_plain, None, *total(fb)),
+             'photometric_bwd': (b_ms, b_plain, None, *total(bb))}
+    for k, (ms, plain, lib, b_ms_, by) in times.items():
+        log('{} over one step\'s launches: kernel {:.4f} ms, plain {:.4f}, '
+            'library {}, bound {:.4f} ms ({})'.format(
+                k, ms, plain, 'none' if lib is None else '{:.4f}'.format(lib),
+                b_ms_, by))
+
+    n_launch = {k: sum(r[k] for r in launches_by_run.values())
+                for k in ('warp', 'photo_fwd', 'photo_bwd', 'san_fwd',
+                          'san_dgrad')}
+    rows = [{
+        'name': 'warp_bilinear', 'route': 'cuda',
+        'source': 'packnet_sfm_tpu_torch/csrc/warp.cu',
+        'replaces': 'packnet_sfm_tpu/ops/pallas/warp.py:92',
+        'launches': n_launch['warp'],
+        'launches_by_path': {'selfsup_i': launches_by_run['i']['warp'],
+                             'selfsup_ii': launches_by_run['ii']['warp']},
+        'max_abs_err': warp_err['float32'],
+        'max_abs_err_bf16': warp_err['bfloat16'],
+        'timed_as': '{} launches of one B{} {}x{} selfsup step (i), bf16 '
+                    'source'.format(len(w_items), bs, *shape),
+        'ms': w_ms, 'plain_ms': w_plain, 'bound_ms': times['warp'][3],
+        'bound_by': times['warp'][4], 'library_ms': w_lib,
+        'library_call': 'F.grid_sample(bilinear, align_corners=True) on a '
+                        'float32 copy, out only'}, {
+        'name': 'photometric_fwd', 'route': 'cuda',
+        'source': 'packnet_sfm_tpu_torch/csrc/photometric.cu',
+        'replaces': 'packnet_sfm_tpu/ops/pallas/photometric.py:94',
+        'launches': n_launch['photo_fwd'],
+        'launches_by_path': {'selfsup_ii': launches_by_run['ii']['photo_fwd']},
+        'max_abs_err': photo_err['fwd'],
+        'timed_as': '{} launches of one B{} {}x{} selfsup step (ii)'.format(
+            len(f_items), bs, *shape),
+        'ms': f_ms, 'plain_ms': f_plain, 'bound_ms': times[
+            'photometric_fwd'][3], 'bound_by': times['photometric_fwd'][4],
+        'library_ms': None}, {
+        'name': 'photometric_bwd', 'route': 'cuda',
+        'source': 'packnet_sfm_tpu_torch/csrc/photometric.cu',
+        'replaces': 'packnet_sfm_tpu/ops/pallas/photometric.py:133',
+        'launches': n_launch['photo_bwd'],
+        'launches_by_path': {'selfsup_ii': launches_by_run['ii']['photo_bwd']},
+        'max_abs_err': photo_err['bwd'],
+        'timed_as': '{} launches of one B{} {}x{} selfsup step (ii)'.format(
+            len(b_items), bs, *shape),
+        'ms': b_ms, 'plain_ms': b_plain, 'bound_ms': times[
+            'photometric_bwd'][3], 'bound_by': times['photometric_bwd'][4],
+        'library_ms': None}]
+    summary = {'card': card, 'batch': bs, 'shape': list(shape),
+               'step_ms': step_ms,
+               'img_per_s': {k: bs * 1e3 / v for k, v in step_ms.items()},
+               'runs': runs, 'warp_max_err': warp_err,
+               'warp_bit_equal_share': exact[0] / exact[1],
+               'photometric_max_err': photo_err, 'function_rel_err': fn_err,
+               'fp32_step_check': {'loss_rel': loss_rel,
+                                   'kernels_vs_plain': grad_check,
+                                   'plain_reversed_batch_vs_plain':
+                                       order_check},
+               'kernels': rows}
+    os.makedirs('chiprun_out', exist_ok=True)
+    with open('chiprun_out/chip_smoke_selfsup.json', 'w') as f:
+        json.dump(summary, f, indent=1)
+    return rows, n_launch
 
 
 def time_forward(i, mod, mask, dtype, dname, esize, gen, san_conv):

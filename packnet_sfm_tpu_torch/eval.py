@@ -37,15 +37,22 @@ def build(config_path, device='cuda', seed=0, overrides=None):
     return config, model.to(dev).eval()
 
 
-def make_batches(shape, batch_size, n_batches, seed=0, device='cuda'):
+def make_batches(shape, batch_size, n_batches, seed=0, device='cuda',
+                 contexts=0):
     """KITTI-structured batches: uniform RGB; GT depth 1-71 m at 20% of the
     pixels; LiDAR on 64 beam rows spread from 40% of the height to the
     bottom (the rows above are empty, as above the horizon), 20% azimuth
-    fill, depth 1-71 m."""
+    fill, depth 1-71 m. With `contexts` > 0, also that many uniform context
+    frames ('rgb_context'), the un-jittered copies 'rgb_original' and
+    'rgb_context_original' (the same tensors: nothing jitters them) and
+    KITTI-like intrinsics (fx = fy = 721.5, principal point at the image
+    centre), drawn as the JAX package's bench.py `_rand_batch` draws them."""
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
     B, (H, W) = batch_size, shape
     beam_rows = np.linspace(int(H * 0.4), H - 1, 64).astype(int)
+    K = np.tile(np.array([[721.5, 0, W / 2], [0, 721.5, H / 2], [0, 0, 1]],
+                         np.float32)[None], (B, 1, 1))
     batches = []
     for _ in range(n_batches):
         rgb = rng.rand(B, H, W, 3).astype(np.float32)
@@ -54,9 +61,15 @@ def make_batches(shape, batch_size, n_batches, seed=0, device='cuda'):
         mask = np.zeros((B, H, W, 1), np.float32)
         mask[:, beam_rows] = rng.rand(B, len(beam_rows), W, 1) < 0.20
         lidar = ((rng.rand(B, H, W, 1) * 70 + 1) * mask).astype(np.float32)
-        batches.append({k: torch.from_numpy(v).to(dev) for k, v in
-                        (('rgb', rgb), ('depth', depth),
-                         ('input_depth', lidar))})
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 (('rgb', rgb), ('depth', depth), ('input_depth', lidar))}
+        if contexts:
+            ctx = [torch.from_numpy(rng.rand(B, H, W, 3).astype(np.float32)
+                                    ).to(dev) for _ in range(contexts)]
+            batch.update(rgb_original=batch['rgb'], rgb_context=ctx,
+                         rgb_context_original=list(ctx),
+                         intrinsics=torch.from_numpy(K).to(dev))
+        batches.append(batch)
     return batches
 
 

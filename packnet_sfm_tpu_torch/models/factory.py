@@ -1,19 +1,23 @@
 """
 Model construction from a config (the JAX package's models/factory.py
-setup_model, for the families this port has: the depth net, the supervised
-loss and the model's loss fields) and seeded random weights.
+setup_model, for the families this port has: the depth net, the pose net,
+the supervised and photometric losses and the model's loss fields) and
+seeded random weights.
 """
 
 import math
 
 import torch
 
+from packnet_sfm_tpu_torch.losses.photometric import MultiViewPhotometricLoss
 from packnet_sfm_tpu_torch.losses.supervised import SupervisedLoss
-from packnet_sfm_tpu_torch.models.sfm import SfmModel, SemiSupCompletionModel
+from packnet_sfm_tpu_torch.models.sfm import (
+    SfmModel, SelfSupModel, SemiSupModel, SemiSupCompletionModel)
 from packnet_sfm_tpu_torch.networks.depth.resnet_san import ResNetSAN01
 from packnet_sfm_tpu_torch.networks.layers.resnet import Conv, BatchNorm
 from packnet_sfm_tpu_torch.networks.layers.san import (
     _MaskedConv, MaskedBatchNorm)
+from packnet_sfm_tpu_torch.networks.pose.pose_net import GroupNorm, PoseNet
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -36,6 +40,36 @@ def setup_depth_net(config, dtype=torch.float32):
         if v is not None and v != '':
             kwargs[key] = tuple(v) if isinstance(v, list) else v
     return ResNetSAN01(dtype=dtype, **kwargs)
+
+
+def setup_pose_net(config, dtype=torch.float32):
+    """Build cfg.model.pose_net (PoseNet only in this port, with its
+    default two contexts and euler rotations)."""
+    if config.name != 'PoseNet':
+        raise NotImplementedError(
+            'pose_net {!r} is not ported yet'.format(config.name))
+    return PoseNet(dtype=dtype)
+
+
+def setup_photometric_loss(config):
+    """MultiViewPhotometricLoss from cfg.model.loss, cfg.model.params and
+    cfg.tpu (use_pallas, photometric_dtype)."""
+    loss_cfg, params_cfg = config.model.loss, config.model.params
+    tpu = config.get('tpu', {})
+    return MultiViewPhotometricLoss(
+        num_scales=loss_cfg.num_scales,
+        ssim_loss_weight=loss_cfg.ssim_loss_weight,
+        smooth_loss_weight=loss_cfg.smooth_loss_weight,
+        C1=loss_cfg.C1, C2=loss_cfg.C2,
+        photometric_reduce_op=loss_cfg.photometric_reduce_op,
+        clip_loss=loss_cfg.clip_loss,
+        progressive_scaling=loss_cfg.get('progressive_scaling', 0.0),
+        padding_mode=loss_cfg.padding_mode,
+        automask_loss=loss_cfg.automask_loss,
+        min_depth=params_cfg.min_depth or 0.05,
+        max_depth=params_cfg.max_depth or 80.0,
+        use_pallas=bool(tpu.get('use_pallas', False)),
+        photometric_dtype=str(tpu.get('photometric_dtype', 'float32')))
 
 
 def setup_supervised_loss(loss_cfg, params_cfg):
@@ -61,14 +95,27 @@ def setup_model(config):
     it with .to(device), pick the branch with .train() / .eval())."""
     model_cfg = config.model
     loss_cfg, params_cfg = model_cfg.loss, model_cfg.params
+    dtype = compute_dtype(config)
+    depth_net = setup_depth_net(model_cfg.depth_net, dtype)
+    pose_net = None
     if model_cfg.pose_net.name:
-        raise NotImplementedError('pose networks are not ported yet')
-    depth_net = setup_depth_net(model_cfg.depth_net, compute_dtype(config))
-    common = dict(flip_lr_prob=loss_cfg.get('flip_lr_prob', 0.0),
+        pose_net = setup_pose_net(model_cfg.pose_net, dtype)
+    common = dict(pose_net=pose_net, rotation_mode=loss_cfg.rotation_mode,
+                  flip_lr_prob=loss_cfg.get('flip_lr_prob', 0.0),
                   upsample_depth_maps=loss_cfg.upsample_depth_maps)
-    if model_cfg.name == 'SfmModel':
+    name = model_cfg.name
+    if name == 'SfmModel':
         return SfmModel(depth_net, **common)
-    if model_cfg.name == 'SemiSupCompletionModel':
+    if name == 'SelfSupModel':
+        return SelfSupModel(depth_net, setup_photometric_loss(config),
+                            **common)
+    if name == 'SemiSupModel':
+        return SemiSupModel(
+            depth_net, photometric_loss=setup_photometric_loss(config),
+            supervised_loss=setup_supervised_loss(loss_cfg, params_cfg),
+            supervised_loss_weight=loss_cfg.supervised_loss_weight,
+            **common)
+    if name == 'SemiSupCompletionModel':
         min_d = params_cfg.min_depth or 0.5
         max_d = params_cfg.max_depth or 80.0
         if max_d <= min_d:
@@ -82,9 +129,9 @@ def setup_model(config):
             min_depth=min_d, max_depth=max_d,
             use_log_space=params_cfg.use_log_space,
             qat_outputs='outputs' in str(params_cfg.get('qat', '')),
+            photometric_loss=setup_photometric_loss(config),
             **common)
-    raise NotImplementedError('model {!r} is not ported yet'.format(
-        model_cfg.name))
+    raise NotImplementedError('model {!r} is not ported yet'.format(name))
 
 
 def _xavier_(t, fan_in, fan_out, gen):
@@ -97,8 +144,9 @@ def _xavier_(t, fan_in, fan_out, gen):
 def init_weights(model, generator):
     """Random weights drawn from `generator`, with the flax initialisers'
     distributions: kaiming fan-out normal for encoder convs, glorot uniform
-    for the others and the masked convs, zero biases, identity BN (running
-    mean 0, var 1). The draws are not those of the JAX package's keys."""
+    for the others (PoseNet's too) and the masked convs, zero biases,
+    identity BN (running mean 0, var 1) and GroupNorm. The draws are not
+    those of the JAX package's keys."""
     for mod in model.modules():
         if isinstance(mod, Conv):
             o, i, kh, kw = mod.weight.shape
@@ -113,7 +161,7 @@ def init_weights(model, generator):
             kh, kw, i, o = mod.kernel.shape
             _xavier_(mod.kernel, i * kh * kw, o * kh * kw, generator)
             mod.bias.zero_()
-        elif isinstance(mod, BatchNorm):
+        elif isinstance(mod, (BatchNorm, GroupNorm)):
             mod.reset_parameters()
         elif isinstance(mod, MaskedBatchNorm):
             mod.scale.fill_(1.0)

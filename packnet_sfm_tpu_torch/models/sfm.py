@@ -1,17 +1,22 @@
 """
-SfM model family (the JAX package's models/sfm.py:61-118 and :173-261;
-reference models/SfmModel.py, SemiSupCompletionModel.py).
+SfM model family (the JAX package's models/sfm.py; reference
+models/SfmModel.py, SelfSupModel.py, SemiSupModel.py,
+SemiSupCompletionModel.py).
 
 Batches are dicts of NHWC tensors: rgb [B,H,W,3], optional input_depth
-[B,H,W,1], depth (GT) [B,H,W,1]. The module's `training` flag picks the
-branch, as the JAX `train` argument does. Pose networks, the photometric
-loss (supervised_loss_weight < 1), the dual-head loss and QAT belong to
-later slices of the port and raise NotImplementedError.
+[B,H,W,1], depth (GT) [B,H,W,1], and for the self-supervised terms
+rgb_original, rgb_context and rgb_context_original (lists of [B,H,W,3]) and
+intrinsics [B,3,3]. The module's `training` flag picks the branch, as the
+JAX `train` argument does. The fisheye camera, PoseResNet, VelSupModel, the
+dual-head loss and QAT belong to later slices of the port and raise
+NotImplementedError.
 """
 
 import torch
 import torch.nn as nn
 
+from packnet_sfm_tpu_torch.geometry.pose import Pose
+from packnet_sfm_tpu_torch.losses.photometric import MultiViewPhotometricLoss
 from packnet_sfm_tpu_torch.losses.supervised import SupervisedLoss
 from packnet_sfm_tpu_torch.ops.depth import sigmoid_to_inv_depth, depth2inv
 from packnet_sfm_tpu_torch.ops.image import flip_lr, interpolate
@@ -31,13 +36,19 @@ def _flip_output(output):
 
 
 class SfmModel(nn.Module):
-    """Depth-net wrapper with the training-time random lr-flip (drawn from
-    the `generator` a caller passes; none, no flip, as the JAX model without
-    a 'flip' rng) and the optional upsampling of every scale to full size."""
+    """Depth and pose networks, with the training-time random lr-flip of the
+    depth net's input (drawn from the `generator` a caller passes; none, no
+    flip, as the JAX model without a 'flip' rng) and the optional upsampling
+    of every scale to full size. The pose net's parameters must sit under
+    the attribute `pose_net`: the optimizer's pose group is chosen by that
+    name (parallel/train_step.py make_optimizer)."""
 
-    def __init__(self, depth_net, flip_lr_prob=0.0, upsample_depth_maps=False):
+    def __init__(self, depth_net, pose_net=None, rotation_mode='euler',
+                 flip_lr_prob=0.0, upsample_depth_maps=False):
         super().__init__()
         self.depth_net = depth_net
+        self.pose_net = pose_net
+        self.rotation_mode = rotation_mode
         self.flip_lr_prob = flip_lr_prob
         self.upsample_depth_maps = upsample_depth_maps
 
@@ -67,14 +78,86 @@ class SfmModel(nn.Module):
                             for d in out[key]]
         return out
 
+    def compute_pose_net(self, image, contexts):
+        pose_vec = self.pose_net(image, contexts)
+        return [Pose.from_vec(pose_vec[:, i], self.rotation_mode)
+                for i in range(pose_vec.shape[1])]
+
     def forward_base(self, batch, generator=None):
-        return {**self.compute_depth_net(batch, generator), 'poses': None}
+        output = self.compute_depth_net(batch, generator)
+        poses = None
+        if batch.get('rgb_context') and self.pose_net is not None:
+            poses = self.compute_pose_net(batch['rgb'], batch['rgb_context'])
+        return {**output, 'poses': poses}
 
     def forward(self, batch, progress=0.0, epoch=0, generator=None):
         return self.forward_base(batch, generator)
 
 
-class SemiSupCompletionModel(SfmModel):
+class SelfSupModel(SfmModel):
+    """+ the multi-view photometric loss on the un-jittered originals."""
+
+    def __init__(self, depth_net, photometric_loss=None, **kwargs):
+        super().__init__(depth_net, **kwargs)
+        self.photometric_loss = photometric_loss or MultiViewPhotometricLoss()
+
+    def self_supervised_loss(self, batch, output, progress=0.0):
+        return self.photometric_loss(
+            batch.get('rgb_original', batch['rgb']),
+            batch.get('rgb_context_original', batch.get('rgb_context')),
+            output['inv_depths'], output['poses'],
+            K=batch.get('intrinsics'),
+            distortion=batch.get('distortion_coeffs'),
+            mask=batch.get('mask'), progress=progress)
+
+    def forward(self, batch, progress=0.0, epoch=0, generator=None):
+        output = self.forward_base(batch, generator)
+        if not self.training:
+            return output
+        if output.get('poses') is None:
+            # no context frames: the self-supervised term is undefined
+            return {'loss': batch['rgb'].new_zeros(()), 'metrics': {},
+                    **output}
+        self_sup = self.self_supervised_loss(batch, output, progress)
+        return {'loss': self_sup['loss'], 'metrics': self_sup['metrics'],
+                **output}
+
+    def _self_sup_part(self, batch, progress, generator, weight):
+        """(output, (1 - weight) * self-supervised loss, its metrics); the
+        photometric loss is skipped at supervised weight 1."""
+        if weight == 1.0:
+            output = self.forward_base(batch, generator)
+            return output, batch['rgb'].new_zeros(()), {}
+        output = SelfSupModel.forward(self, batch, progress=progress,
+                                      generator=generator)
+        return output, (1.0 - weight) * output['loss'], dict(
+            output['metrics'])
+
+
+class SemiSupModel(SelfSupModel):
+    """+ the supervised loss on the raw outputs, weighted against the
+    self-supervised one."""
+
+    def __init__(self, depth_net, supervised_loss=None,
+                 supervised_loss_weight=0.9, **kwargs):
+        super().__init__(depth_net, **kwargs)
+        self.supervised_loss = supervised_loss or SupervisedLoss()
+        self.supervised_loss_weight = supervised_loss_weight
+
+    def forward(self, batch, progress=0.0, epoch=0, generator=None):
+        if not self.training:
+            return self.forward_base(batch)
+        output, loss, metrics = self._self_sup_part(
+            batch, progress, generator, self.supervised_loss_weight)
+        sup = self.supervised_loss(output['inv_depths'],
+                                   depth2inv(batch['depth']),
+                                   progress=progress, epoch=epoch)
+        loss = loss + self.supervised_loss_weight * sup['loss']
+        metrics.update(sup['metrics'])
+        return {**output, 'loss': loss, 'metrics': metrics}
+
+
+class SemiSupCompletionModel(SelfSupModel):
     """Depth-completion model (the fork's flagship). Eval is the base
     forward; training adds the GT clamp, the sigmoid -> bounded inverse
     depth conversion, the supervised loss on the RGB and RGB+D pyramids,
@@ -108,21 +191,18 @@ class SemiSupCompletionModel(SfmModel):
     def forward(self, batch, progress=0.0, epoch=0, generator=None):
         if not self.training:
             return self.forward_base(batch)
-        if self.supervised_loss_weight != 1.0:
-            raise NotImplementedError(
-                'supervised_loss_weight < 1 needs the photometric loss, '
-                'which comes with the self-supervised slice (slice 3)')
         if self.qat_outputs:
             raise NotImplementedError('QAT is not ported yet (slice 5)')
-        output = self.forward_base(batch, generator)
-        if 'inv_depths' not in output:
+        if getattr(self.depth_net, 'use_dual_head', False):
             raise NotImplementedError(
                 'the dual-head loss is not ported yet (slice 5)')
+        output, loss, metrics = self._self_sup_part(
+            batch, progress, generator, self.supervised_loss_weight)
         gt_inv = depth2inv(self._clamp_gt(batch['depth']))
         sup = self.supervised_loss(self._bounded(output['inv_depths']),
                                    gt_inv, progress=progress, epoch=epoch)
-        loss = self.supervised_loss_weight * sup['loss']
-        metrics = dict(sup['metrics'])
+        loss = loss + self.supervised_loss_weight * sup['loss']
+        metrics.update(sup['metrics'])
 
         if 'inv_depths_rgbd' in output:
             sup2 = self.supervised_loss(

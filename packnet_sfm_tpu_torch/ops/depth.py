@@ -11,7 +11,8 @@ import math
 
 import torch
 
-from packnet_sfm_tpu_torch.ops.image import flip_lr, interpolate
+from packnet_sfm_tpu_torch.ops.image import (
+    flip_lr, gradient_x, gradient_y, interpolate)
 
 METRIC_COUNT = 7
 
@@ -25,6 +26,30 @@ def sigmoid_to_inv_depth(sig, min_depth=0.05, max_depth=80.0,
         log_min, log_max = math.log(min_inv), math.log(max_inv)
         return torch.exp(log_min + (log_max - log_min) * sig)
     return min_inv + (max_inv - min_inv) * sig
+
+
+def sigmoid_to_depth_linear(sig, min_depth=0.05, max_depth=80.0):
+    """depth = 1 / (linear bounded inverse depth + 1e-8)."""
+    return 1.0 / (sigmoid_to_inv_depth(sig, min_depth, max_depth) + 1e-8)
+
+
+def inv_depths_normalize(inv_depths):
+    """Each [B,H,W,1] map divided by its spatial mean (clamped at 1e-6)."""
+    return [d / d.mean(dim=(1, 2), keepdim=True).clamp(min=1e-6)
+            for d in inv_depths]
+
+
+def calc_smoothness(inv_depths, images, num_scales):
+    """Edge-aware smoothness terms per scale: the gradients of the
+    mean-normalised maps weighted by exp(-mean_c |image gradient|)."""
+    inv_norm = inv_depths_normalize(inv_depths)
+    sx, sy = [], []
+    for i in range(num_scales):
+        wx = torch.exp(-gradient_x(images[i]).abs().mean(dim=3, keepdim=True))
+        wy = torch.exp(-gradient_y(images[i]).abs().mean(dim=3, keepdim=True))
+        sx.append(gradient_x(inv_norm[i]) * wx)
+        sy.append(gradient_y(inv_norm[i]) * wy)
+    return sx, sy
 
 
 def inv2depth(inv_depth):

@@ -5,6 +5,41 @@ interpolation follows torch.nn.functional.interpolate conventions).
 
 import torch.nn.functional as F
 
+from packnet_sfm_tpu_torch.ops.kernels import warp
+
+
+def gradient_x(image):
+    """Forward difference along W: [B,H,W,C] -> [B,H,W-1,C]."""
+    return image[:, :, :-1, :] - image[:, :, 1:, :]
+
+
+def gradient_y(image):
+    """Forward difference along H: [B,H,W,C] -> [B,H-1,W,C]."""
+    return image[:, :-1, :, :] - image[:, 1:, :, :]
+
+
+def reflect_pad_2d(x, pad=1):
+    """Reflection padding of H and W of [B,H,W,C] (ReflectionPad2d)."""
+    return F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad),
+                 mode='reflect').permute(0, 2, 3, 1)
+
+
+def avg_pool_3x3(x):
+    """3x3 stride-1 valid average pool of [B,H,W,C], as separable shifted
+    sums in the JAX package's order."""
+    h = x[:, :-2] + x[:, 1:-1] + x[:, 2:]
+    s = h[:, :, :-2] + h[:, :, 1:-1] + h[:, :, 2:]
+    return s / 9.0
+
+
+def grid_sample(image, grid, padding_mode='zeros'):
+    """Bilinear sampling of [B,H,W,C] at normalised coordinates grid
+    [B,Ho,Wo,2] (x, y in [-1, 1]), as F.grid_sample(mode='bilinear',
+    align_corners=True) with 'zeros' or 'border' padding. Differentiable:
+    the warp kernel's autograd Function on CUDA tensors, its plain version
+    on CPU tensors (ops/kernels/warp.py, looked up at call time)."""
+    return warp.grid_sample_fn(image, grid, padding_mode)
+
 
 def flip_lr(image):
     """Horizontal flip of an NHWC image."""

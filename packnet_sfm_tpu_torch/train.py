@@ -7,8 +7,13 @@ builds the model and the optimizer from the YAML, draws the weights from a
 seeded torch.Generator, makes KITTI-structured RGB + LiDAR + GT batches
 from a seed at the YAML's train batch size and image shape (there is no
 dataset in the repository yet; see eval.py `make_batches`) and trains for
-`n_steps` steps over `n_batches` batches. Runs on the card unless
-device='cpu' is passed.
+`n_steps` steps over `n_batches` batches. A model with a pose net gets
+`back_context + forward_context` context frames (datasets.train) and
+intrinsics in each batch, for the photometric loss:
+
+    python -m packnet_sfm_tpu_torch.train packnet_sfm_tpu_torch/configs/selfsup_kitti_192x640.yaml
+
+Runs on the card unless device='cpu' is passed.
 """
 
 import argparse
@@ -31,6 +36,15 @@ def build(config_path, device='cuda', seed=0, overrides=None):
     return config, model.to(dev).train()
 
 
+def n_contexts(config):
+    """Context frames per sample: those of datasets.train when the model has
+    a pose net, else none."""
+    if not config.model.pose_net.name:
+        return 0
+    train = config.datasets.train
+    return int(train.back_context) + int(train.forward_context)
+
+
 def main(config_path, device='cuda', n_steps=4, n_batches=2, seed=0,
          overrides=None):
     """Train seeded weights on seeded batches. Returns {'losses': per-step
@@ -40,7 +54,7 @@ def main(config_path, device='cuda', n_steps=4, n_batches=2, seed=0,
     config, model = build(config_path, device, seed, overrides)
     batches = make_batches(image_shape(config),
                            int(config.datasets.train.batch_size), n_batches,
-                           seed, device)
+                           seed, device, n_contexts(config))
     trainer = Trainer(config, model, steps_per_epoch=len(batches),
                       generator=torch.Generator().manual_seed(seed + 1))
     losses = trainer.fit(batches, n_steps)

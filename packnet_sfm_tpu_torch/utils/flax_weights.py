@@ -6,6 +6,8 @@ leaf `a/b/Conv_1/kernel` lands on `model.a.b.Conv_1`:
 - nn.Conv2d (the port's `Conv`): `kernel` HWIO -> `weight` OIHW, `bias`;
 - nn.BatchNorm2d: `scale` -> `weight`, `bias`, and batch_stats `mean` /
   `var` -> `running_mean` / `running_var`;
+- nn.GroupNorm (PoseNet's, under `pose_net/convN/GroupNorm_0`): `scale` ->
+  `weight`, `bias`;
 - everything else (masked-conv `kernel` kept HWIO for the kernel,
   MaskedBatchNorm `scale`/`bias`/`mean`/`var`, the fusion gates `weight` /
   `bias`): the same name, as it is.
@@ -21,6 +23,7 @@ import torch.nn as nn
 
 _BN_NAMES = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
              'var': 'running_var'}
+_GN_NAMES = {'scale': 'weight', 'bias': 'bias'}
 
 
 def _flatten(tree, prefix=()):
@@ -39,6 +42,8 @@ def _target(mod, leaf, value):
         return leaf, value
     if isinstance(mod, nn.BatchNorm2d):
         return _BN_NAMES.get(leaf, leaf), value
+    if isinstance(mod, nn.GroupNorm):
+        return _GN_NAMES.get(leaf, leaf), value
     return leaf, value
 
 

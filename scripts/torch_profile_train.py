@@ -2,17 +2,21 @@
 """
 Where the time of the PyTorch port's train step goes, on one CUDA card.
 
-    python3 scripts/torch_profile_train.py [--iters 5] [--batch-size 8]
+    python3 scripts/torch_profile_train.py [CONFIG] [--iters 5] [--batch-size N]
+    python3 scripts/torch_profile_train.py \
+        packnet_sfm_tpu_torch/configs/selfsup_kitti_192x640.yaml
 
-Builds the slice's model and optimizer (configs/train_resnet_san_ncdb_640x384.yaml,
-seeded weights, bf16 convs), warms up on one seeded batch, then traces
-`--iters` train steps (forward, loss, backward, clip, Adam) with
+Builds the model and optimizer of CONFIG (default
+configs/train_resnet_san_ncdb_640x384.yaml; seeded weights), warms up on one
+seeded batch (with context frames and intrinsics when the model has a pose
+net) at the YAML's train batch size unless --batch-size is given, then
+traces `--iters` train steps (forward, loss, backward, clip, Adam) with
 torch.profiler and prints: the wall time per step, the device time per step
 summed over kernels, the device busy share of the window, the device time
 per step by kind of kernel (the masked-conv forward and dgrad kernels, the
-cuDNN/CUTLASS convs, elementwise and reductions, max-pool, the optimizer,
-copies), and the kernels by device time. The whole table goes to
-chiprun_out/profile_train.json.
+warp and photometric kernels, the cuDNN/CUTLASS convs, elementwise and
+reductions, max-pool, the optimizer, copies), and the kernels by device
+time. The whole table goes to chiprun_out/profile_train.json.
 """
 
 import argparse
@@ -25,7 +29,10 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # kind of kernel by its name, the first match wins
-KINDS = (('masked-conv dgrad kernel', ('masked_conv_kernel', ', true>')),
+KINDS = (('warp kernel', ('warp_kernel',)),
+         ('photometric forward kernel', ('photometric_fwd_kernel',)),
+         ('photometric backward kernel', ('photometric_bwd_kernel',)),
+         ('masked-conv dgrad kernel', ('masked_conv_kernel', ', true>')),
          ('masked-conv forward kernel', ('masked_conv_kernel',)),
          ('max-pool', ('max_pool',)),
          ('optimizer (Adam, clip)', ('multi_tensor_apply',)),
@@ -48,8 +55,11 @@ def kind(name):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('config', nargs='?', default=os.path.join(
+        'configs', 'train_resnet_san_ncdb_640x384.yaml'))
     ap.add_argument('--iters', type=int, default=5)
-    ap.add_argument('--batch-size', type=int, default=8)
+    ap.add_argument('--batch-size', type=int, default=None,
+                    help='default: the YAML\'s datasets.train.batch_size')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -64,11 +74,13 @@ def main():
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
-    config, model = port_train.build(
-        os.path.join(ROOT, 'configs', 'train_resnet_san_ncdb_640x384.yaml'),
-        'cuda', seed=0)
+    config, model = port_train.build(os.path.join(ROOT, args.config), 'cuda',
+                                     seed=0)
+    if args.batch_size is None:
+        args.batch_size = int(config.datasets.train.batch_size)
     batch = port_eval.make_batches(port_eval.image_shape(config),
-                                   args.batch_size, 1, 0, 'cuda')[0]
+                                   args.batch_size, 1, 0, 'cuda',
+                                   port_train.n_contexts(config))[0]
     step = Trainer(config, model, steps_per_epoch=1).train_step
     for _ in range(3):
         step(batch)
@@ -101,7 +113,8 @@ def main():
                                          'calls_per_step': 0.0})
         k['ms_per_step'] += r['us_per_step'] / 1e3
         k['calls_per_step'] += r['calls_per_step']
-    summary = {'card': card, 'batch_size': args.batch_size,
+    summary = {'card': card, 'config': args.config,
+               'batch_size': args.batch_size,
                'iters': args.iters,
                'wall_ms_per_step': wall * 1e3 / args.iters,
                'img_per_s': args.batch_size * args.iters / wall,

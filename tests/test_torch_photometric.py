@@ -1,0 +1,172 @@
+"""The PyTorch port's photometric map (packnet_sfm_tpu_torch/ops/kernels/
+photometric.py: the plain forward and backward the wrappers run on CPU
+tensors, through its autograd Function) against the JAX package's Pallas
+kernels in interpret mode (ops/pallas/photometric.py, which runs
+interpreted off the TPU) and their jax.grad; and the non-kernel
+composition (ops/ssim.py, ops/image.py pools and pads, ops/depth.py
+smoothness) against the JAX package's.
+
+Cases: random images over more than one 48-row TPU tile with a ragged
+tail, identical images (SSIM on the clamp), and bf16 inputs on the non-kernel
+path. A channel count other than 3 raises.
+
+Tolerance: values rtol 1e-5 / atol 1e-6 and gradients rtol 1e-4 / atol
+1e-5 in float32, as tests/test_pallas_photometric.py holds the Pallas
+kernel to XLA; bf16 inputs (float32 moment islands on both sides): values
+atol 1e-5 x max|value|, gradients, which cross the casts in bf16, within
+one bf16 rounding (atol 1e-2 x max|value|).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from packnet_sfm_tpu.ops import depth as jdepth
+from packnet_sfm_tpu.ops import image as jimage
+from packnet_sfm_tpu.ops import ssim as jssim
+from packnet_sfm_tpu.ops.pallas.photometric import photometric_map_pallas
+from packnet_sfm_tpu_torch.ops import depth as tdepth
+from packnet_sfm_tpu_torch.ops import image as timage
+from packnet_sfm_tpu_torch.ops import ssim as tssim
+from packnet_sfm_tpu_torch.ops.kernels import photometric as tphoto
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _pair(seed, B, H, W, same=False):
+    rng = np.random.RandomState(seed)
+    x = rng.rand(B, H, W, 3).astype(np.float32)
+    y = x.copy() if same else rng.rand(B, H, W, 3).astype(np.float32)
+    g = rng.rand(B, H, W, 1).astype(np.float32)
+    return x, y, g
+
+
+@pytest.mark.parametrize('shape,same', [((2, 61, 12), False),
+                                        ((1, 12, 10), True)])
+def test_photometric_map_matches_pallas_and_its_grad(shape, same):
+    x, y, g = _pair(sum(shape), *shape, same=same)
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+    want = photometric_map_pallas(jx, jy)
+    want_dx, want_dy = jax.grad(
+        lambda a, b: (photometric_map_pallas(a, b) * g).sum(),
+        argnums=(0, 1))(jx, jy)
+    tx, ty = t(x).requires_grad_(True), t(y).requires_grad_(True)
+    got = tphoto.photometric_map_fn(tx, ty)
+    (got * t(g)).sum().backward()
+    assert got.shape == shape + (1,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_dx),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(ty.grad.numpy(), np.asarray(want_dy),
+                               rtol=1e-4, atol=1e-5)
+    if same:
+        # SSIM == 1 and x == y: the strict gate and sign(0) give no gradient
+        assert not tx.grad.any() and not ty.grad.any()
+
+
+def test_backward_formula_matches_autograd_of_the_plain_forward():
+    """The raw-moment backward against autograd through the plain forward
+    (the composition chip_smoke.py holds the kernels to on the card)."""
+    x, y, g = _pair(9, 2, 13, 17)
+    tx, ty = t(x).requires_grad_(True), t(y).requires_grad_(True)
+    (tphoto.photometric_map_reference(tx, ty) * t(g)).sum().backward()
+    ux, uy = t(x).requires_grad_(True), t(y).requires_grad_(True)
+    (tphoto.photometric_map_fn(ux, uy) * t(g)).sum().backward()
+    np.testing.assert_allclose(ux.grad.numpy(), tx.grad.numpy(), rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(uy.grad.numpy(), ty.grad.numpy(), rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_wrappers_refuse_what_they_do_not_take():
+    xp = torch.rand(1, 4, 6, 7)
+    with pytest.raises(ValueError, match='3 channels'):
+        tphoto.photometric_fwd(xp, xp)
+    with pytest.raises(ValueError, match='3 channels'):
+        tphoto.photometric_map_fn(torch.rand(1, 4, 5, 4),
+                                  torch.rand(1, 4, 5, 4))
+    xp = torch.rand(1, 3, 6, 7)
+    with pytest.raises(ValueError, match='g must be'):
+        tphoto.photometric_bwd(xp, xp, torch.rand(1, 6, 7))
+    before = (tphoto.photometric_fwd.launches,
+              tphoto.photometric_bwd.launches)
+    with pytest.raises(ValueError, match='CUDA'):
+        tphoto._launch_fwd(xp, xp, 0.85, 1e-4, 9e-4)
+    with pytest.raises(ValueError, match='CUDA'):
+        tphoto.photometric_bwd(xp.to('meta'), xp.to('meta'),
+                               torch.rand(1, 4, 5).to('meta'))
+    assert (tphoto.photometric_fwd.launches,
+            tphoto.photometric_bwd.launches) == before
+
+
+@pytest.mark.parametrize('lowp', [False, True])
+def test_ssim_loss_matches_jax(lowp):
+    """Values and gradients; bf16 inputs on the clamp_variance path."""
+    x, y, g = _pair(11, 2, 10, 14)
+    g = np.repeat(g, 3, axis=-1)
+    dt = (jnp.bfloat16, torch.bfloat16) if lowp else (jnp.float32,
+                                                      torch.float32)
+
+    def jf(a, b):
+        s = jssim.ssim_loss(a.astype(dt[0]), b.astype(dt[0]),
+                            clamp_variance=lowp)
+        return (s * g).sum(), s
+
+    (_, want), (want_dx, want_dy) = jax.value_and_grad(
+        jf, argnums=(0, 1), has_aux=True)(jnp.asarray(x), jnp.asarray(y))
+    tx, ty = t(x).requires_grad_(True), t(y).requires_grad_(True)
+    got = tssim.ssim_loss(tx.to(dt[1]), ty.to(dt[1]), clamp_variance=lowp)
+    (got * t(g)).sum().backward()
+    assert got.dtype == torch.float32
+    # under bf16 the cotangent crosses the casts in bf16: one rounding
+    grad_tol = 1e-2 if lowp else 1e-5
+    for a, b, tol in ((got.detach(), want, 1e-5), (tx.grad, want_dx, grad_tol),
+                      (ty.grad, want_dy, grad_tol)):
+        b = np.asarray(b, np.float32)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=tol * np.abs(b).max())
+
+
+def test_clip_gradient_at_its_bounds_is_jax_s():
+    """jnp.clip splits the gradient at a tie with a bound; torch.clamp
+    would pass all of it. Identical images put (1 - SSIM) / 2 on 0."""
+    v = np.array([0.0, 1.0, 0.5, -0.5, 1.5], np.float32)
+    want = jax.grad(lambda a: jnp.clip(a, 0.0, 1.0).sum())(jnp.asarray(v))
+    tv = t(v).requires_grad_(True)
+    tssim.clip(tv, 0.0, 1.0).sum().backward()
+    np.testing.assert_array_equal(tv.grad.numpy(), np.asarray(want))
+    x, _, _ = _pair(12, 1, 6, 7)
+    lin = (1.0 - tssim.ssim(t(x), t(x))) * 0.5
+    assert bool((lin == 0).all())
+
+
+def test_image_and_depth_helpers_match_jax():
+    rng = np.random.RandomState(13)
+    x = rng.rand(2, 7, 9, 3).astype(np.float32)
+    for tf, jf in ((timage.gradient_x, jimage.gradient_x),
+                   (timage.gradient_y, jimage.gradient_y),
+                   (timage.reflect_pad_2d, jimage.reflect_pad_2d),
+                   (timage.avg_pool_3x3, jimage.avg_pool_3x3)):
+        np.testing.assert_allclose(tf(t(x)).numpy(), np.asarray(jf(x)),
+                                   rtol=1e-6, atol=1e-7)
+    sig = [rng.rand(2, 7 // 2 ** i + 1, 9 // 2 ** i + 1, 1).astype(np.float32)
+           for i in range(3)]
+    imgs = [rng.rand(*s.shape[:3], 3).astype(np.float32) for s in sig]
+    np.testing.assert_allclose(
+        tdepth.sigmoid_to_depth_linear(t(sig[0]), 0.5, 80.0).numpy(),
+        np.asarray(jdepth.sigmoid_to_depth_linear(sig[0], 0.5, 80.0)),
+        rtol=1e-6)
+    for a, b in zip(tdepth.inv_depths_normalize([t(s) for s in sig]),
+                    jdepth.inv_depths_normalize(sig)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+    got = tdepth.calc_smoothness([t(s) for s in sig], [t(i) for i in imgs], 3)
+    want = jdepth.calc_smoothness(sig, imgs, 3)
+    for gl, wl in zip(got, want):
+        for a, b in zip(gl, wl):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                       atol=1e-6)
