@@ -51,6 +51,23 @@ it, with nothing of JAX:
    27 masked-conv launches; never an image cotangent through the warp;
    and one float32 step through every kernel against plain autograd
    through every plain version, with the reversed batch as the control;
+   then the generic-camera path (phase G): the projection forward kernel
+   against its plain version (rows, cols, m, s) and the backward kernels
+   against the plain formula on the same residuals (twice: bit-equal), at
+   the step's own planes (192x192 from configs/train_omnicam.yaml, 384x384
+   from configs/train_omnicam_fullres.yaml) and at edge shapes (41x41,
+   41x97, B2 45x60; rays near the pinhole template at the temperatures of
+   progress 0 and 1, and random rays at temperature 1), the Function
+   against plain autograd; train.main on both YAMLs at B1 384x384 on one
+   batch with something to learn (a smooth target, context frames that are
+   the target shifted by 4 px; 10 steps of (i), the last loss below the
+   first; 3 of (ii)), the counts reset just before and read just after
+   each run: per step 2 projection forwards, 2 backward calls (2 launches
+   each) and 2 warps, no masked-conv or photometric launch; and one
+   float32 step of (i) at progress 0.5 through every kernel against every
+   plain version, held to the limits of the train step, with the plain
+   step at a temperature moved by 3e-7 logged as the control (B1 has no
+   reversed batch);
 4. (d) time eval img/s at B1 and the train step and img/s at B8, the
    forward kernel at the eval shapes and both kernels at the train shapes
    beside their plain versions, the library yardstick (one cuDNN call the
@@ -59,13 +76,16 @@ it, with nothing of JAX:
    self-supervised step's ms and img/s under (i) and (ii); the warp and
    photometric kernels over one step's launches beside their plain
    versions, F.grid_sample (the warp's yardstick: out only, no A/B) and
-   their bounds;
-5. (e) print the kernels line with all five kernels, then the device line
+   their bounds; the generic step's ms under (i) and (ii) and the
+   projection kernels over one step's calls beside their plain versions
+   and their bounds (bytes, fp32 operations or exps at the SFU rate,
+   whichever is larger; no library call computes this function);
+5. (e) print the kernels line with all seven kernels, then the device line
    last.
 
 Run with no arguments: `python3 chip_smoke.py`. Exits nonzero without a
-card. Extra output goes to chiprun_out/chip_smoke_convs.json and
-chiprun_out/chip_smoke_selfsup.json.
+card. Extra output goes to chiprun_out/chip_smoke_convs.json,
+chiprun_out/chip_smoke_selfsup.json and chiprun_out/chip_smoke_generic.json.
 """
 
 import contextlib
@@ -78,6 +98,10 @@ import time
 H100_BYTES_PER_S = 3.35e12            # HBM3, H100 SXM data sheet
 H100_FLOPS = {'float32': 67e12,       # CUDA cores, no tensor cores
               'bfloat16': 989e12}     # dense tensor cores
+# exp2 (the core of expf) on the special-function units: 16 results per SM
+# per clock at compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput), 132 SMs at the 1.98 GHz boost clock
+H100_SFU_PER_S = 132 * 16 * 1.98e9
 CONFIG = 'configs/train_resnet_san_ncdb_640x384.yaml'
 N_EVAL_BATCHES = 3
 CONVS_PER_FORWARD = 30
@@ -98,6 +122,10 @@ WARPS_PER_STEP = 2                     # one per context frame
 PHOTO_FWD_PER_STEP = 10                # (4 scales + automask) x 2 contexts
 PHOTO_BWD_PER_STEP = 8                 # the automask maps need no gradient
 SELFSUP_RUNS = (('i', None, 10), ('ii', FP32_MAPS, 3))
+GENERIC_CONFIGS = {'i': 'configs/train_omnicam.yaml',
+                   'ii': 'configs/train_omnicam_fullres.yaml'}
+GENERIC_RUNS = (('i', 10), ('ii', 3))
+PROJ_PER_STEP = 2                      # one projection per context frame
 
 
 def log(*a):
@@ -144,14 +172,19 @@ def plain_versions():
     masked conv as F.conv2d with its own backward, the warp as the gather
     version (dgrid by autograd through floor, the taps and the bilinear
     weights), the photometric map as the plain forward (its gradient by
-    autograd through the box sums). No kernel and no autograd Function, so
+    autograd through the box sums), the generic projection as the plain
+    online softmax (its gradient by autograd through the recurrence). No
+    kernel and no autograd Function, so
     every gradient comes from other code than the port's (the callers look
     the ops up at call time)."""
-    from packnet_sfm_tpu_torch.ops.kernels import photometric, san_conv, warp
+    from packnet_sfm_tpu_torch.ops.kernels import (
+        generic_projection, photometric, san_conv, warp)
     swaps = ((san_conv, 'masked_conv2d_fn', san_conv.masked_conv2d_reference),
              (warp, 'grid_sample_fn', warp.grid_sample_reference),
              (photometric, 'photometric_map_fn',
-              photometric.photometric_map_reference))
+              photometric.photometric_map_reference),
+             (generic_projection, 'expected_patch_coords_fn',
+              generic_projection.expected_patch_coords_reference))
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -297,7 +330,7 @@ def main():
     from packnet_sfm_tpu_torch import eval as port_eval
     from packnet_sfm_tpu_torch import train as port_train
     from packnet_sfm_tpu_torch.ops.kernels import (
-        build, photometric, san_conv, warp)
+        build, generic_projection, photometric, san_conv, warp)
     from packnet_sfm_tpu_torch.parallel.train_step import (
         make_eval_step, make_eval_metrics_step)
 
@@ -310,8 +343,9 @@ def main():
     log('torch {} cuda {} python {}'.format(
         torch.__version__, torch.version.cuda, sys.version.split()[0]))
     t0 = time.time()
-    built = build.build_all(['san_conv', 'warp', 'photometric'])
-    log('kernel build (3 sources in parallel): {:.1f} s'.format(
+    built = build.build_all(['san_conv', 'warp', 'photometric',
+                             'generic_projection'])
+    log('kernel build (4 sources in parallel): {:.1f} s'.format(
         time.time() - t0))
     for name, (lib_path, ptxas) in built.items():
         log('  {} -> {}'.format(name, os.path.relpath(lib_path)))
@@ -328,7 +362,9 @@ def main():
                 'san_dgrad': san_conv.masked_conv2d_dgrad,
                 'warp': warp.bilinear_warp,
                 'photo_fwd': photometric.photometric_fwd,
-                'photo_bwd': photometric.photometric_bwd}
+                'photo_bwd': photometric.photometric_bwd,
+                'proj_fwd': generic_projection.generic_projection_fwd,
+                'proj_bwd': generic_projection.generic_projection_bwd}
 
     def reset_counts():
         for fn in counters.values():
@@ -567,6 +603,9 @@ def main():
     counts['fwd'] += selfsup_launches['san_fwd']
     counts['dgrad'] += selfsup_launches['san_dgrad']
 
+    # ---------------------------------------------------------------- G
+    generic_rows = generic_phase(card, dev, gen, reset_counts, read_counts)
+
     # ---------------------------------------------------------------- 4
     step = make_eval_step(model)
     fwd_ms = cuda_time_ms(lambda: step(batch), iters=20)
@@ -723,7 +762,7 @@ def main():
             train_bs, shape[0], shape[1], dname),
         'ms': dg_tot['ms'], 'plain_ms': dg_tot['plain_ms'],
         'bound_ms': dg_tot['bound_ms'], 'bound_by': by(dg_tot),
-        'library_ms': dg_tot['library_ms']}] + selfsup_rows}))
+        'library_ms': dg_tot['library_ms']}] + selfsup_rows + generic_rows}))
     log(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -939,7 +978,8 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
                 'san_dgrad': DGRADS_PER_STEP * n_steps,
                 'warp': WARPS_PER_STEP * n_steps,
                 'photo_fwd': PHOTO_FWD_PER_STEP * n_steps if fp32 else 0,
-                'photo_bwd': PHOTO_BWD_PER_STEP * n_steps if fp32 else 0}
+                'photo_bwd': PHOTO_BWD_PER_STEP * n_steps if fp32 else 0,
+                'proj_fwd': 0, 'proj_bwd': 0}
         if got != want:
             raise AssertionError('selfsup path ({}) launched {}, expected {}'
                                  .format(name, got, want))
@@ -1131,6 +1171,370 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
     with open('chiprun_out/chip_smoke_selfsup.json', 'w') as f:
         json.dump(summary, f, indent=1)
     return rows, n_launch
+
+
+def pinhole_planes(B, H, W, gen, noise):
+    """Unit pinhole rays [B,3,H,W] (fx = W, centred) plus `noise` times a
+    unit normal, renormalised: a ray plane near the template."""
+    import torch
+    dev = gen.device
+    u = (torch.arange(W, device=dev, dtype=torch.float32) - (W - 1) / 2) / W
+    v = (torch.arange(H, device=dev, dtype=torch.float32) - (H - 1) / 2) / W
+    rays = torch.stack([u[None].expand(H, W), v[:, None].expand(H, W),
+                        torch.ones(H, W, device=dev)])[None].repeat(B, 1, 1, 1)
+    rays = rays + noise * torch.randn(B, 3, H, W, device=dev, generator=gen)
+    return (rays / rays.norm(dim=1, keepdim=True)).contiguous()
+
+
+def projection_cases(rec, gen):
+    """(tag, ray_p, d_p, p) for the kernel checks: the step's own inputs,
+    then edge shapes (41x41, 41x97, B2 45x60) with rays near the pinhole
+    template and directions divided by the temperature of progress 0 and 1
+    (a peaked softmax), and random unnormalised rays at temperature 1 (a
+    flat one)."""
+    import torch
+    from packnet_sfm_tpu_torch.geometry.camera_generic import (
+        softmax_temperature)
+    cases = [('step ' + tag, a[0], a[1], a[2])
+             for tag in ('i', 'ii') for a in rec['fwd_' + tag]]
+    for B, H, W in ((1, 41, 41), (1, 41, 97), (2, 45, 60)):
+        ray = pinhole_planes(B, H, W, gen, 0.01)
+        for progress in (0.0, 1.0):
+            d = pinhole_planes(B, H, W, gen, 0.01) / softmax_temperature(
+                progress)
+            cases.append(('{}x{}x{} progress {}'.format(B, H, W, progress),
+                          ray, d.contiguous(), 20))
+        flat = [torch.randn(B, 3, H, W, device=gen.device, generator=gen)
+                for _ in range(2)]
+        cases.append(('{}x{}x{} flat'.format(B, H, W), flat[0], flat[1], 20))
+    return cases
+
+
+def generic_phase(card, dev, gen, reset_counts, read_counts):
+    """Phase G: the generic-camera slice (configs/train_omnicam.yaml (i),
+    configs/train_omnicam_fullres.yaml (ii)): its projection kernels
+    against their plain versions, its path through train.main, one fp32
+    step against the plain versions, and its timings. Returns the
+    kernels-line rows of the two projection kernels."""
+    import numpy as np
+    import torch
+    from packnet_sfm_tpu_torch import eval as port_eval
+    from packnet_sfm_tpu_torch import train as port_train
+    from packnet_sfm_tpu_torch.config import parse_train_config
+    from packnet_sfm_tpu_torch.geometry import camera_generic
+    from packnet_sfm_tpu_torch.ops.kernels import generic_projection as gp
+
+    config = parse_train_config(GENERIC_CONFIGS['i'])
+    shape = port_eval.image_shape(config)
+    bs = int(config.datasets.train.batch_size)
+    batch = port_eval.make_batches(shape, bs, 1, seed=0, device='cuda',
+                                   contexts=port_train.n_contexts(config))[0]
+
+    # the step's own kernel inputs: one training step of (i) and of (ii)
+    rec = {k: [] for k in ('fwd_i', 'fwd_ii', 'bwd_i', 'bwd_ii')}
+    for name, path in GENERIC_CONFIGS.items():
+        _, model = port_train.build(path, 'cuda', seed=0)
+        with recording(gp, '_launch_fwd', rec['fwd_' + name]), \
+                recording(gp, '_launch_bwd', rec['bwd_' + name]):
+            model(batch)['loss'].backward()
+        del model
+    torch.cuda.synchronize()
+    got = [len(v) for v in rec.values()]
+    if got != [PROJ_PER_STEP] * 4:
+        raise AssertionError('one generic step called the projection '
+                             'forward / backward {} times (i, ii)'.format(got))
+    sizes = {k: tuple(rec['fwd_' + k][0][0].shape) for k in ('i', 'ii')}
+    log('generic step projection planes: (i) {}, (ii) {}'.format(
+        sizes['i'], sizes['ii']))
+
+    # the forward against its plain version: the logits are the same
+    # products summed in the same order, so m (their max) is expected bit
+    # for bit; s, rows and cols sum the same positive terms in another
+    # order: s rtol 1e-5, rows and cols atol 1e-5 of the plane's extent
+    # (5e-6 on the normalised grid, 40x inside JAX's own cross-formulation
+    # limit of 2e-4)
+    fwd_err = {'rows_cols_px': 0.0, 'm_rel': 0.0, 's_rel': 0.0}
+    m_equal = [0, 0]
+    cases = projection_cases(rec, gen)
+    for tag, ray, d, p in cases:
+        got = gp.generic_projection_fwd(ray, d, p)
+        torch.cuda.synchronize()
+        want = gp.generic_projection_fwd_reference(ray, d, p)
+        H, W = ray.shape[2], ray.shape[3]
+        for nm, a, b, ext in (('rows', got[0], want[0], H - 1),
+                              ('cols', got[1], want[1], W - 1)):
+            fwd_err['rows_cols_px'] = max(fwd_err['rows_cols_px'], check_close(
+                'projection fwd {} {}'.format(tag, nm), a, b, 1e-5 * ext, 0.0))
+        fwd_err['m_rel'] = max(fwd_err['m_rel'], check_close(
+            'projection fwd {} m'.format(tag), got[2], want[2], 0.0, 1e-6)
+            / float(want[2].abs().max()))
+        fwd_err['s_rel'] = max(fwd_err['s_rel'], check_close(
+            'projection fwd {} s'.format(tag), got[3], want[3], 0.0, 1e-5)
+            / float(want[3].abs().max()))
+        m_equal[0] += int((got[2] == want[2]).sum())
+        m_equal[1] += got[2].numel()
+    log('projection forward kernel vs plain: {} cases ok; max |err| rows / '
+        'cols {:.3e} px, m {:.3e} and s {:.3e} of max; m bit-equal {:.6f} '
+        'of the values'.format(len(cases), fwd_err['rows_cols_px'],
+                               fwd_err['m_rel'], fwd_err['s_rel'],
+                               m_equal[0] / m_equal[1]))
+
+    # the backward against its plain formula on the same residuals: signed
+    # sums over up to (3p+1)^2 terms in another order: atol 2e-4 x
+    # max|ref| (10x inside JAX's 2e-3); run twice, bit-equal (no atomics)
+    bwd_err = 0.0
+    bcases = [('step ' + tag, a) for tag in ('i', 'ii')
+              for a in rec['bwd_' + tag]]
+    for tag, ray, d, p in cases[len(bcases):]:
+        res = gp.generic_projection_fwd(ray, d, p)
+        g2 = [torch.randn(res[0].shape, device=dev, generator=gen)
+              for _ in range(2)]
+        bcases.append((tag, (ray, d, *res, *g2, p)))
+    for tag, args in bcases:
+        got = gp.generic_projection_bwd(*args)
+        again = gp.generic_projection_bwd(*args)
+        torch.cuda.synchronize()
+        want = gp.generic_projection_bwd_reference(*args)
+        for nm, a, b, c in zip(('dray', 'dd'), got, want, again):
+            bwd_err = max(bwd_err, check_close(
+                'projection bwd {} {}'.format(tag, nm), a, b,
+                2e-4 * float(b.abs().max()), 0.0) / float(b.abs().max()))
+            if not torch.equal(a, c):
+                raise AssertionError('projection bwd {} {}: two calls differ'
+                                     .format(tag, nm))
+    log('projection backward kernels vs plain: {} cases ok, max |err| {:.3e} '
+        'of max|ref|; two calls bit-equal'.format(len(bcases), bwd_err))
+
+    # the Function against plain autograd through the plain forward. The
+    # two round differently (the analytic adjoint against autodiff of the
+    # online softmax), and at the step's temperature the logits are ~1e4,
+    # whose float32 ulp is ~1e-3: each lands ~1e-4 of max from the exact
+    # gradient, in places ~3x apart. So the Function is held to JAX's own
+    # cross-formulation limits (rtol 5e-3, atol 2e-3 x max|ref|) against
+    # the exact gradient, plain autograd through the plain forward in
+    # float64, and float32 plain autograd's distance from it is logged
+    fn_err = {}
+    f64 = lambda r, dd, p: gp.generic_projection_fwd_reference(r, dd, p)[:2]
+    for tag, ray, d, p in [cases[0], cases[-2], cases[-1]]:
+        g2 = [torch.randn(ray.shape[:1] + ray.shape[2:], device=dev,
+                          generator=gen) for _ in range(2)]
+        grads = []
+        for fn, dt in ((gp.expected_patch_coords_fn, torch.float32),
+                       (gp.expected_patch_coords_reference, torch.float32),
+                       (f64, torch.float64)):
+            leaves = [ray.to(dt, copy=True).requires_grad_(True),
+                      d.to(dt, copy=True).requires_grad_(True)]
+            rows, cols = fn(*leaves, p)
+            ((rows * g2[0].to(dt)).sum() + (cols * g2[1].to(dt)).sum()
+             ).backward()
+            grads.append([t.grad for t in leaves])
+            del rows, cols, leaves
+        for i, nm in enumerate(('dray', 'dd')):
+            exact = grads[2][i]
+            scale = float(exact.abs().max())
+            key = '{} {}'.format(tag, nm)
+            check_close('projection Function ' + key, grads[0][i].double(),
+                        exact, 2e-3 * scale, 5e-3)
+            fn_err[key] = {'function': float(
+                (grads[0][i].double() - exact).abs().max()) / scale,
+                'plain_fp32': float(
+                (grads[1][i].double() - exact).abs().max()) / scale}
+        del grads
+    torch.cuda.synchronize()
+    log('projection Function and plain float32 autograd against plain '
+        'float64 autograd, max |err| / max|ref|: ' + ', '.join(
+            '{} {:.3e} / {:.3e}'.format(k, v['function'], v['plain_fp32'])
+            for k, v in fn_err.items()))
+
+    # the path: train.main on (i) and (ii) on a batch with something to
+    # learn, each run one epoch of that batch repeated, so that progress
+    # stays below 0.02 as in the first steps of a real run (at one batch an
+    # epoch it would reach 0.18 by step 10 and ramp the random ray residual
+    # in at 0.47)
+    learn = port_eval.shifted_context_batch(batch)
+    runs, trainers, launches_by_run = [], {}, {}
+    for name, n_steps in GENERIC_RUNS:
+        reset_counts()
+        t0 = time.time()
+        run = port_train.main(GENERIC_CONFIGS[name], device='cuda',
+                              n_steps=n_steps, seed=0,
+                              batches=[learn] * n_steps)
+        got = read_counts()
+        wall = time.time() - t0
+        want = dict.fromkeys(got, 0)
+        want.update(proj_fwd=PROJ_PER_STEP * n_steps,
+                    proj_bwd=PROJ_PER_STEP * n_steps,
+                    warp=WARPS_PER_STEP * n_steps)
+        if got != want:
+            raise AssertionError('generic path ({}) launched {}, expected {}'
+                                 .format(name, got, want))
+        losses = run['losses']
+        if not all(np.isfinite(losses)) or \
+                run['trainer'].optimizer.count != n_steps:
+            raise AssertionError('generic path ({}): non-finite loss or a '
+                                 'step skipped: {}'.format(name, losses))
+        fell = bool(losses[-1] < losses[0])
+        if n_steps >= 10 and not fell:
+            raise AssertionError('generic loss ({}) did not fall over {} '
+                                 'steps on one batch: {}'.format(
+                                     name, n_steps, losses))
+        launches_by_run[name] = got
+        trainers[name] = (run['trainer'], run['batches'][0])
+        runs.append({'run': name, 'config': GENERIC_CONFIGS[name],
+                     'steps': n_steps, 'losses': losses, 'last_below_first':
+                     fell, 'wall_s': wall, 'launches': got})
+        log('train.main generic ({}) B{} {}x{}: {} steps, launches {}, '
+            'losses {}, last below first: {}'.format(
+                name, bs, shape[0], shape[1], n_steps, got,
+                ['{:.4f}'.format(v) for v in losses], fell))
+        del run
+
+    # one float32 step of (i) at progress 0.5 (the ray head live) through
+    # every kernel, through every plain version under plain autograd, and
+    # (the control; B1 has no reversed batch) plain again with the softmax
+    # temperature moved by 3e-7 relative, a few ulps
+    _, fmodel = port_train.build(GENERIC_CONFIGS['i'], 'cuda', seed=0,
+                                 overrides=['tpu.compute_dtype', 'float32'])
+    temperature = camera_generic.softmax_temperature
+    step_grads = []
+    for plain, scale in ((False, 1.0), (True, 1.0), (True, 1.0 + 3e-7)):
+        fmodel.zero_grad(set_to_none=True)
+        camera_generic.softmax_temperature = (
+            lambda progress, s=scale: temperature(progress) * s)
+        try:
+            with plain_versions() if plain else contextlib.nullcontext():
+                out = fmodel(batch, progress=0.5)
+                out['loss'].backward()
+        finally:
+            camera_generic.softmax_temperature = temperature
+        step_grads.append((float(out['loss'].detach()),
+                           {n: p.grad.detach().clone() if p.grad is not None
+                            else torch.zeros_like(p)
+                            for n, p in fmodel.named_parameters()}))
+        del out
+    del fmodel
+    (loss_k, gk), (loss_p, gp_), (_, gt) = step_grads
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_check = compare_grads(gk, gp_)
+    temp_check = compare_grads(gt, gp_)
+    log('generic step (i) fp32 at progress 0.5, kernels vs plain: loss '
+        '{:.6f} vs {:.6f} (rel {:.2e}); per gradient leaf max|err|/max|g| '
+        '{:.3e} (at {}), |err|/|g| {:.3e}; zero leaves {:.2e} of the '
+        'largest gradient. Plain vs plain at the temperature x (1 + 3e-7): '
+        '{:.3e} (at {}), {:.3e}, {:.2e}'.format(
+            loss_k, loss_p, loss_rel, *grad_check, *temp_check))
+    # held to slice 2's fixed limits; the control is logged, not a limit:
+    # a few-ulp change of every logit moves single leaves whose gradient
+    # is a sum that cancels (a one-element bias) by up to their size
+    rel, _, norm, zero_leaf = grad_check
+    if loss_rel > TRAIN_LOSS_RTOL or rel > TRAIN_GRAD_REL or \
+            norm > TRAIN_GRAD_NORM or zero_leaf > 1e-6:
+        raise AssertionError('generic step through the kernels disagrees '
+                             'with the plain versions')
+
+    # timings: the step under (i) and (ii)
+    step_ms = {}
+    for name, (trainer, run_batch) in trainers.items():
+        for _ in range(2):
+            trainer.train_step(run_batch)
+        torch.cuda.synchronize()
+        n_timed = 5
+        t0 = time.perf_counter()
+        for _ in range(n_timed):
+            trainer.train_step(run_batch)
+        torch.cuda.synchronize()
+        step_ms[name] = (time.perf_counter() - t0) * 1e3 / n_timed
+        log('generic train step ({}) B{} {}x{}: {:.3f} ms, {:.2f} img/s'
+            .format(name, bs, shape[0], shape[1], step_ms[name],
+                    bs * 1e3 / step_ms[name]))
+    del trainers
+
+    # the kernels over one step's launches, the plain versions, and the
+    # bound from this run's inputs: bytes (each plane once), fp32
+    # operations (~12 a candidate forward, ~24 backward) at 67 TFLOP/s, and
+    # the exps (one a candidate) at the SFU rate
+    def over_step(fn, items, iters=10):
+        return cuda_time_ms(lambda: [fn(*a) for a in items], iters=iters)
+
+    def proj_bound(ray_p, p, planes, flops):
+        B, _, H, W = ray_p.shape
+        n_cand = B * H * W * (2 * p + 1) ** 2
+        b_all, b_ms, o_ms = bound(planes * B * H * W * 4, flops * n_cand,
+                                  'float32')
+        e_ms = n_cand / H100_SFU_PER_S * 1e3
+        parts = {'bytes': b_ms, 'fp32 operations': o_ms, 'exps': e_ms}
+        return max(b_all, e_ms), b_ms, max(o_ms, e_ms), max(parts,
+                                                             key=parts.get)
+
+    times = {}
+    with torch.no_grad():
+        for name in ('i', 'ii'):
+            f_items, b_items = rec['fwd_' + name], rec['bwd_' + name]
+            # forward: ray_p, d_p in (6 planes), rows, cols, m, s out (4);
+            # backward: those 10 and gy, gx in, dray, dd out (18)
+            fb = [proj_bound(a[0], a[2], 10, 12) for a in f_items]
+            bb = [proj_bound(a[0], a[8], 18, 24) for a in b_items]
+            times[name] = {
+                'fwd': (over_step(gp._launch_fwd, f_items),
+                        over_step(gp.generic_projection_fwd_reference,
+                                  f_items, 3), fb),
+                'bwd': (over_step(gp._launch_bwd, b_items),
+                        over_step(gp.generic_projection_bwd_reference,
+                                  b_items, 3), bb)}
+    rows_out, summary_times = [], {}
+    for kname, key, line, replaces in (
+            ('generic_projection_fwd', 'fwd', ':81', 'forward'),
+            ('generic_projection_bwd', 'bwd', ':199', 'backward')):
+        t_i, t_ii = times['i'][key], times['ii'][key]
+        b_i = sum(b[0] for b in t_i[2])
+        b_ii = sum(b[0] for b in t_ii[2])
+        by = 'bytes' if sum(b[1] for b in t_i[2]) > sum(
+            b[2] for b in t_i[2]) else 'operations'
+        summary_times[kname] = {
+            'i': {'ms': t_i[0], 'plain_ms': t_i[1], 'bound_ms': b_i,
+                  'set_by': t_i[2][0][3]},
+            'ii': {'ms': t_ii[0], 'plain_ms': t_ii[1], 'bound_ms': b_ii,
+                   'set_by': t_ii[2][0][3]}}
+        log('projection {} over one step\'s {} calls: (i) kernel {:.4f} ms, '
+            'plain {:.4f}, bound {:.4f} ms (set by {}); (ii) kernel {:.4f} '
+            'ms, plain {:.4f}, bound {:.4f} ms; library none'.format(
+                replaces, PROJ_PER_STEP, t_i[0], t_i[1], b_i, t_i[2][0][3],
+                t_ii[0], t_ii[1], b_ii))
+        rows_out.append({
+            'name': kname, 'route': 'cuda',
+            'source': 'packnet_sfm_tpu_torch/csrc/generic_projection.cu',
+            'replaces': 'packnet_sfm_tpu/ops/pallas/generic_projection.py'
+                        + line,
+            'launches': sum(r['proj_' + key] for r in
+                            launches_by_run.values()),
+            'launches_by_path': {'generic_' + k: v['proj_' + key]
+                                 for k, v in launches_by_run.items()},
+            'max_abs_err': (fwd_err['rows_cols_px'] if key == 'fwd'
+                            else bwd_err),
+            'timed_as': '{} {} of one B{} {}x{} step (i), {}x{} planes'
+                        .format(PROJ_PER_STEP, 'launches' if key == 'fwd'
+                                else 'calls (2 launches each)', bs, *shape,
+                                *sizes['i'][2:]),
+            'ms': t_i[0], 'plain_ms': t_i[1], 'bound_ms': b_i,
+            'bound_by': by, 'bound_set_by': t_i[2][0][3],
+            'library_ms': None,
+            'ii_ms': t_ii[0], 'ii_plain_ms': t_ii[1], 'ii_bound_ms': b_ii})
+    summary = {'card': card, 'batch': bs, 'shape': list(shape),
+               'planes': {k: list(v) for k, v in sizes.items()},
+               'step_ms': step_ms,
+               'img_per_s': {k: bs * 1e3 / v for k, v in step_ms.items()},
+               'runs': runs, 'fwd_err': fwd_err,
+               'm_bit_equal_share': m_equal[0] / m_equal[1],
+               'bwd_rel_err': bwd_err, 'function_rel_err': fn_err,
+               'fp32_step_check': {'loss_rel': loss_rel,
+                                   'kernels_vs_plain': grad_check,
+                                   'plain_temperature_moved_vs_plain':
+                                       temp_check},
+               'kernel_times': summary_times, 'kernels': rows_out}
+    os.makedirs('chiprun_out', exist_ok=True)
+    with open('chiprun_out/chip_smoke_generic.json', 'w') as f:
+        json.dump(summary, f, indent=1)
+    return rows_out
 
 
 def time_forward(i, mod, mask, dtype, dname, esize, gen, san_conv):

@@ -73,6 +73,25 @@ def make_batches(shape, batch_size, n_batches, seed=0, device='cuda',
     return batches
 
 
+def shifted_context_batch(batch, shift=4, cell=8, seed=0):
+    """`batch` (from make_batches with contexts) with something for the
+    photometric loss to learn: a smooth target, uniform noise on a grid of
+    `cell` px upsampled bilinearly, and context frames that are the target
+    shifted `shift` px right and left, as a small yaw of the camera gives.
+    make_batches' context frames are uniform noise drawn apart from the
+    target, which leave that loss nothing to learn."""
+    B, H, W, _ = batch['rgb'].shape
+    dev = batch['rgb'].device
+    low = torch.rand(B, 3, H // cell, W // cell, device=dev,
+                     generator=torch.Generator(dev).manual_seed(seed))
+    rgb = torch.nn.functional.interpolate(
+        low, (H, W), mode='bilinear', align_corners=True).permute(
+            0, 2, 3, 1).contiguous()
+    ctx = [torch.roll(rgb, s, 2) for s in (shift, -shift)]
+    return dict(batch, rgb=rgb, rgb_original=rgb, rgb_context=ctx,
+                rgb_context_original=list(ctx))
+
+
 def main(config_path, device='cuda', batch_size=1, n_batches=2, seed=0,
          overrides=None):
     """Evaluate seeded weights on seeded batches; returns the metrics dict.

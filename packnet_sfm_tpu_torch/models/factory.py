@@ -9,10 +9,16 @@ import math
 
 import torch
 
+from packnet_sfm_tpu_torch.losses.generic_photometric import (
+    GenericMultiViewPhotometricLoss)
 from packnet_sfm_tpu_torch.losses.photometric import MultiViewPhotometricLoss
 from packnet_sfm_tpu_torch.losses.supervised import SupervisedLoss
+from packnet_sfm_tpu_torch.models.generic import (
+    GenericSfmModel, GenericSelfSupModel)
 from packnet_sfm_tpu_torch.models.sfm import (
     SfmModel, SelfSupModel, SemiSupModel, SemiSupCompletionModel)
+from packnet_sfm_tpu_torch.networks.depth.ray_surface_resnet import (
+    RaySurfaceResNet)
 from packnet_sfm_tpu_torch.networks.depth.resnet_san import ResNetSAN01
 from packnet_sfm_tpu_torch.networks.layers.resnet import Conv, BatchNorm
 from packnet_sfm_tpu_torch.networks.layers.san import (
@@ -29,7 +35,11 @@ def compute_dtype(config):
 
 
 def setup_depth_net(config, dtype=torch.float32):
-    """Build cfg.model.depth_net (ResNetSAN01 only in this port)."""
+    """Build cfg.model.depth_net (ResNetSAN01 or RaySurfaceResNet in this
+    port)."""
+    if config.name == 'RaySurfaceResNet':
+        return RaySurfaceResNet(version=config.get('version') or '18pt',
+                                dtype=dtype)
     if config.name != 'ResNetSAN01':
         raise NotImplementedError(
             'depth_net {!r} is not ported yet'.format(config.name))
@@ -131,6 +141,22 @@ def setup_model(config):
             qat_outputs='outputs' in str(params_cfg.get('qat', '')),
             photometric_loss=setup_photometric_loss(config),
             **common)
+    if name == 'GenericSelfSupModel':
+        # the fields the JAX factory passes: no depth range, no map dtype
+        generic = GenericMultiViewPhotometricLoss(
+            num_scales=1,
+            ssim_loss_weight=loss_cfg.ssim_loss_weight,
+            smooth_loss_weight=loss_cfg.smooth_loss_weight,
+            C1=loss_cfg.C1, C2=loss_cfg.C2,
+            photometric_reduce_op=loss_cfg.photometric_reduce_op,
+            clip_loss=loss_cfg.clip_loss,
+            padding_mode=loss_cfg.padding_mode,
+            automask_loss=loss_cfg.automask_loss,
+            full_res_projection=loss_cfg.get('generic_full_res', False))
+        return GenericSelfSupModel(depth_net,
+                                   generic_photometric_loss=generic, **common)
+    if name == 'GenericSfmModel':
+        return GenericSfmModel(depth_net, **common)
     raise NotImplementedError('model {!r} is not ported yet'.format(name))
 
 

@@ -33,6 +33,14 @@ def sigmoid_to_depth_linear(sig, min_depth=0.05, max_depth=80.0):
     return 1.0 / (sigmoid_to_inv_depth(sig, min_depth, max_depth) + 1e-8)
 
 
+def disp_to_depth(disp, min_depth, max_depth):
+    """monodepth2's sigmoid -> (scaled disparity, depth) in [min, max]."""
+    min_disp = 1.0 / max_depth
+    max_disp = 1.0 / min_depth
+    scaled_disp = min_disp + (max_disp - min_disp) * disp
+    return scaled_disp, 1.0 / scaled_disp
+
+
 def inv_depths_normalize(inv_depths):
     """Each [B,H,W,1] map divided by its spatial mean (clamped at 1e-6)."""
     return [d / d.mean(dim=(1, 2), keepdim=True).clamp(min=1e-6)

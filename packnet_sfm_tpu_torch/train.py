@@ -46,15 +46,18 @@ def n_contexts(config):
 
 
 def main(config_path, device='cuda', n_steps=4, n_batches=2, seed=0,
-         overrides=None):
+         overrides=None, batches=None):
     """Train seeded weights on seeded batches. Returns {'losses': per-step
     floats, 'config', 'model' (in training mode; trainers.trainer.evaluate
     switches it to eval mode), 'trainer', 'batches'}. `overrides` is a flat
-    ['a.b.c', value, ...] list merged over the YAML."""
+    ['a.b.c', value, ...] list merged over the YAML. `batches`, a list of
+    batch dicts on `device`, replaces the seeded ones (`n_batches` is then
+    unused)."""
     config, model = build(config_path, device, seed, overrides)
-    batches = make_batches(image_shape(config),
-                           int(config.datasets.train.batch_size), n_batches,
-                           seed, device, n_contexts(config))
+    if batches is None:
+        batches = make_batches(image_shape(config),
+                               int(config.datasets.train.batch_size),
+                               n_batches, seed, device, n_contexts(config))
     trainer = Trainer(config, model, steps_per_epoch=len(batches),
                       generator=torch.Generator().manual_seed(seed + 1))
     losses = trainer.fit(batches, n_steps)

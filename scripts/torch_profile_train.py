@@ -5,6 +5,7 @@ Where the time of the PyTorch port's train step goes, on one CUDA card.
     python3 scripts/torch_profile_train.py [CONFIG] [--iters 5] [--batch-size N]
     python3 scripts/torch_profile_train.py \
         packnet_sfm_tpu_torch/configs/selfsup_kitti_192x640.yaml
+    python3 scripts/torch_profile_train.py configs/train_omnicam.yaml
 
 Builds the model and optimizer of CONFIG (default
 configs/train_resnet_san_ncdb_640x384.yaml; seeded weights), warms up on one
@@ -14,9 +15,9 @@ traces `--iters` train steps (forward, loss, backward, clip, Adam) with
 torch.profiler and prints: the wall time per step, the device time per step
 summed over kernels, the device busy share of the window, the device time
 per step by kind of kernel (the masked-conv forward and dgrad kernels, the
-warp and photometric kernels, the cuDNN/CUTLASS convs, elementwise and
-reductions, max-pool, the optimizer, copies), and the kernels by device
-time. The whole table goes to chiprun_out/profile_train.json.
+warp, photometric and generic-projection kernels, the cuDNN/CUTLASS convs,
+elementwise and reductions, max-pool, the optimizer, copies), and the
+kernels by device time. The whole table goes to chiprun_out/profile_train.json.
 """
 
 import argparse
@@ -29,7 +30,9 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # kind of kernel by its name, the first match wins
-KINDS = (('warp kernel', ('warp_kernel',)),
+KINDS = (('generic projection forward kernel', ('proj_fwd_kernel',)),
+         ('generic projection backward kernels', ('proj_bwd_',)),
+         ('warp kernel', ('warp_kernel',)),
          ('photometric forward kernel', ('photometric_fwd_kernel',)),
          ('photometric backward kernel', ('photometric_bwd_kernel',)),
          ('masked-conv dgrad kernel', ('masked_conv_kernel', ', true>')),

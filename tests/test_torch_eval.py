@@ -29,6 +29,9 @@ from packnet_sfm_tpu_torch.parallel.train_step import (
 from packnet_sfm_tpu_torch.trainers.trainer import evaluate
 from packnet_sfm_tpu_torch.utils.flax_weights import load_flax_variables
 from packnet_sfm_tpu_torch.utils.logging_utils import METRIC_NAMES
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 CONFIG = str(Path(__file__).resolve().parents[1] / 'configs' /
              'train_resnet_san_ncdb_640x384.yaml')
@@ -158,8 +161,9 @@ def test_evaluate_weights_by_batch_size(models):
               {k: v[1:] for k, v in batch.items()}]
     flat = evaluate(tcfg, tm, [halves[0], halves[1], {'rgb': batch['rgb']}])
     assert len(flat) == 6 * 7 + 1
+    per_half = [step(h) for h in halves]
     for mode in ('depth', 'depth_log_gt'):
-        mean = (step(halves[0])[mode] + step(halves[1])[mode]) / 2
+        mean = (per_half[0][mode] + per_half[1][mode]) / 2
         for i, name in enumerate(METRIC_NAMES):
             np.testing.assert_allclose(flat['{}-{}'.format(mode, name)],
                                        float(mean[i]), atol=1e-6)

@@ -125,6 +125,7 @@ def test_port_imports_nothing_of_jax():
     # the port may speak of flax variables (utils/flax_weights.py reads
     # their tree as numpy), but imports neither JAX, flax nor the JAX package
     pattern = re.compile(r'import jax|from jax|import flax|from flax'
+                         r'|import optax|from optax'
                          r'|\b(import|from)\s+packnet_sfm_tpu\b'
                          r'|packnet_sfm_tpu\.')
     files = sorted((ROOT / 'packnet_sfm_tpu_torch').rglob('*.py'))
@@ -132,6 +133,13 @@ def test_port_imports_nothing_of_jax():
     files += [ROOT / 'chip_smoke.py']
     files += sorted((ROOT / 'scripts').glob('torch_*.py'))
     assert len(files) > 15
+    # the generic-camera slice's modules are among them
+    port = ROOT / 'packnet_sfm_tpu_torch'
+    for rel in ('geometry/camera_generic.py', 'losses/generic_photometric.py',
+                'models/generic.py', 'networks/depth/ray_surface_resnet.py',
+                'ops/kernels/generic_projection.py',
+                'csrc/generic_projection.cu'):
+        assert port / rel in files, rel
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
     assert offenders == []

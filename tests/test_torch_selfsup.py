@@ -49,6 +49,9 @@ from packnet_sfm_tpu_torch.ops.kernels import warp as twarp
 from packnet_sfm_tpu_torch.parallel.train_step import make_optimizer
 from packnet_sfm_tpu_torch.utils.flax_weights import (
     flax_state_dict, load_flax_variables)
+# one_torch_thread is not for the whole-step test: its zero leaves sit at
+# the 1e-8 floor, and another summation order crosses it
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = str(ROOT / 'packnet_sfm_tpu_torch' / 'configs' /
@@ -119,6 +122,7 @@ def _loss_inputs(seed, per_scale, B=2):
 
 
 @pytest.mark.parametrize('case', list(LOSS_CASES))
+@pytest.mark.usefixtures('one_torch_thread')
 def test_photometric_loss_matches_jax(case):
     kw, per_scale = LOSS_CASES[case]
     kw = dict(kw, smooth_loss_weight=0.1, min_depth=0.5, max_depth=80.0)
@@ -150,6 +154,7 @@ def test_photometric_loss_matches_jax(case):
     close(tv.grad, want_dv, grad_rel)
 
 
+@pytest.mark.usefixtures('one_torch_thread')
 def test_loss_counts_one_warp_per_context_and_one_automask_map():
     """Under upsample_depth_maps every scale shares one warp launch per
     context, and the automask's unwarped map is computed once per context;
@@ -189,6 +194,7 @@ def test_loss_refuses_the_fisheye_camera():
 # ---------------------------------------------------------------- PoseNet
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.usefixtures('one_torch_thread')
 def test_posenet_matches_jax(dtype):
     rng = np.random.RandomState(6)
     img = rng.rand(2, 32, 64, 3).astype(np.float32)
@@ -285,6 +291,7 @@ def test_yaml_matches_bench_selfsup_cfg():
     assert port_train.n_contexts(got) == 2
 
 
+@pytest.mark.usefixtures('one_torch_thread')
 def test_train_main_selfsup_on_cpu():
     """Both chip paths at a tiny size: bf16 maps, and float32 maps through
     the kernels' Function; the wrappers count no launch on the CPU."""

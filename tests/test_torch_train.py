@@ -69,6 +69,9 @@ from packnet_sfm_tpu_torch.parallel.train_step import (
 from packnet_sfm_tpu_torch.trainers.trainer import evaluate
 from packnet_sfm_tpu_torch.utils.flax_weights import (
     flax_state_dict, load_flax_variables)
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 CONFIG = str(Path(__file__).resolve().parents[1] / 'configs' /
              'train_resnet_san_ncdb_640x384.yaml')
