@@ -68,6 +68,27 @@ it, with nothing of JAX:
    plain version, held to the limits of the train step, with the plain
    step at a temperature moved by 3e-7 logged as the control (B1 has no
    reversed batch);
+   then the lane-gather probes (phase Q): the probe's entry point
+   (scripts/torch_bench_dynamic_gather.py `run`) with the counts reset
+   just before and read just after (5 gather launches, the loop's 1 + 200
+   launches a throughput shape, its semantics all right; its device times
+   come from CUDA graphs of raw launches, which the counts do not see), and
+   both kernels against their plain versions at its five semantic shapes,
+   the two throughput shapes and the loop at S 8, 16, 32 and n 0, 1, 5, 16,
+   512, bit-equal;
+   then the eval and inference CLIs (phase C): an NCDB-layout tree of 8
+   frames at 384x640 written with the port's own writers (RGB, and 16-bit
+   depth on LiDAR-like beam rows), the seeded bf16 model saved with
+   save_checkpoint, eval.test on it with
+   datasets.test.input_depth_type ['depth_original'] (B1, the counts reset
+   just before and read just after: 30 masked-conv launches per frame,
+   nothing else, 0 skipped batches), its metrics against `evaluate` on the
+   same loader with the in-memory model (atol 1e-4), infer_and_save_depth
+   on the frame folder (RGB only: no kernel launch) with each saved depth
+   against the eval forward's on the same frame (rtol 1e-5), and the host
+   decode time per frame, both CLIs' img/s and the device's busy share of
+   the eval loop (its kernel time under torch.profiler over one more pass,
+   against that pass's wall time);
 4. (d) time eval img/s at B1 and the train step and img/s at B8, the
    forward kernel at the eval shapes and both kernels at the train shapes
    beside their plain versions, the library yardstick (one cuDNN call the
@@ -80,12 +101,13 @@ it, with nothing of JAX:
    projection kernels over one step's calls beside their plain versions
    and their bounds (bytes, fp32 operations or exps at the SFU rate,
    whichever is larger; no library call computes this function);
-5. (e) print the kernels line with all seven kernels, then the device line
+5. (e) print the kernels line with all nine kernels, then the device line
    last.
 
 Run with no arguments: `python3 chip_smoke.py`. Exits nonzero without a
 card. Extra output goes to chiprun_out/chip_smoke_convs.json,
-chiprun_out/chip_smoke_selfsup.json and chiprun_out/chip_smoke_generic.json.
+chiprun_out/chip_smoke_selfsup.json, chiprun_out/chip_smoke_generic.json,
+chiprun_out/chip_smoke_gather.json and chiprun_out/chip_smoke_cli.json.
 """
 
 import contextlib
@@ -126,6 +148,11 @@ GENERIC_CONFIGS = {'i': 'configs/train_omnicam.yaml',
                    'ii': 'configs/train_omnicam_fullres.yaml'}
 GENERIC_RUNS = (('i', 10), ('ii', 3))
 PROJ_PER_STEP = 2                      # one projection per context frame
+GATHER_ITERS = 200                     # timed launches of each probe shape
+CLI_FRAMES = 8                         # frames of the phase C tree
+# fp32 adds: one instruction a lane a clock, 128 lanes an SM, 132 SMs at
+# 1.98 GHz (the 67 TFLOP/s peak counts an FMA as two)
+H100_FP32_ADDS_PER_S = 132 * 128 * 1.98e9
 
 
 def log(*a):
@@ -330,7 +357,7 @@ def main():
     from packnet_sfm_tpu_torch import eval as port_eval
     from packnet_sfm_tpu_torch import train as port_train
     from packnet_sfm_tpu_torch.ops.kernels import (
-        build, generic_projection, photometric, san_conv, warp)
+        build, generic_projection, lane_gather, photometric, san_conv, warp)
     from packnet_sfm_tpu_torch.parallel.train_step import (
         make_eval_step, make_eval_metrics_step)
 
@@ -344,8 +371,8 @@ def main():
         torch.__version__, torch.version.cuda, sys.version.split()[0]))
     t0 = time.time()
     built = build.build_all(['san_conv', 'warp', 'photometric',
-                             'generic_projection'])
-    log('kernel build (4 sources in parallel): {:.1f} s'.format(
+                             'generic_projection', 'lane_gather'])
+    log('kernel build (5 sources in parallel): {:.1f} s'.format(
         time.time() - t0))
     for name, (lib_path, ptxas) in built.items():
         log('  {} -> {}'.format(name, os.path.relpath(lib_path)))
@@ -364,7 +391,9 @@ def main():
                 'photo_fwd': photometric.photometric_fwd,
                 'photo_bwd': photometric.photometric_bwd,
                 'proj_fwd': generic_projection.generic_projection_fwd,
-                'proj_bwd': generic_projection.generic_projection_bwd}
+                'proj_bwd': generic_projection.generic_projection_bwd,
+                'gather': lane_gather.lane_gather,
+                'gather_loop': lane_gather.lane_gather_loop}
 
     def reset_counts():
         for fn in counters.values():
@@ -606,6 +635,13 @@ def main():
     # ---------------------------------------------------------------- G
     generic_rows = generic_phase(card, dev, gen, reset_counts, read_counts)
 
+    # ---------------------------------------------------------------- Q
+    gather_rows = gather_phase(card, dev, gen, reset_counts, read_counts)
+
+    # ---------------------------------------------------------------- C
+    cli_launches = cli_phase(card, dev, reset_counts, read_counts)
+    counts['fwd'] += cli_launches
+
     # ---------------------------------------------------------------- 4
     step = make_eval_step(model)
     fwd_ms = cuda_time_ms(lambda: step(batch), iters=20)
@@ -739,7 +775,8 @@ def main():
         'replaces': 'packnet_sfm_tpu/ops/pallas/san_conv.py:53',
         'launches': eval_launches + counts['fwd'],
         'launches_by_path': {'eval': eval_launches, 'train': train_fwd,
-                             'selfsup': selfsup_launches['san_fwd']},
+                             'selfsup': selfsup_launches['san_fwd'],
+                             'eval_cli': cli_launches},
         'max_abs_err': max_err['float32'],
         'max_abs_err_bf16': max_err['bfloat16'],
         'timed_as': '30 launches of one B1 {}x{} eval forward, {}'.format(
@@ -762,7 +799,8 @@ def main():
             train_bs, shape[0], shape[1], dname),
         'ms': dg_tot['ms'], 'plain_ms': dg_tot['plain_ms'],
         'bound_ms': dg_tot['bound_ms'], 'bound_by': by(dg_tot),
-        'library_ms': dg_tot['library_ms']}] + selfsup_rows + generic_rows}))
+        'library_ms': dg_tot['library_ms']}] + selfsup_rows + generic_rows +
+        gather_rows}))
     log(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -974,12 +1012,12 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
         got = read_counts()
         wall = time.time() - t0
         fp32 = over is not None
-        want = {'san_fwd': CONVS_PER_FORWARD * n_steps,
-                'san_dgrad': DGRADS_PER_STEP * n_steps,
-                'warp': WARPS_PER_STEP * n_steps,
-                'photo_fwd': PHOTO_FWD_PER_STEP * n_steps if fp32 else 0,
-                'photo_bwd': PHOTO_BWD_PER_STEP * n_steps if fp32 else 0,
-                'proj_fwd': 0, 'proj_bwd': 0}
+        want = dict.fromkeys(got, 0)
+        want.update(san_fwd=CONVS_PER_FORWARD * n_steps,
+                    san_dgrad=DGRADS_PER_STEP * n_steps,
+                    warp=WARPS_PER_STEP * n_steps,
+                    photo_fwd=PHOTO_FWD_PER_STEP * n_steps if fp32 else 0,
+                    photo_bwd=PHOTO_BWD_PER_STEP * n_steps if fp32 else 0)
         if got != want:
             raise AssertionError('selfsup path ({}) launched {}, expected {}'
                                  .format(name, got, want))
@@ -1535,6 +1573,297 @@ def generic_phase(card, dev, gen, reset_counts, read_counts):
     with open('chiprun_out/chip_smoke_generic.json', 'w') as f:
         json.dump(summary, f, indent=1)
     return rows_out
+
+
+def gather_phase(card, dev, gen, reset_counts, read_counts):
+    """Phase Q: the lane-gather probes (see the module note). Returns the
+    kernels-line rows of both kernels."""
+    import torch
+    from packnet_sfm_tpu_torch.ops.kernels import lane_gather as lg
+    sys.path.insert(0, os.path.join(os.getcwd(), 'scripts'))
+    import torch_bench_dynamic_gather as probe
+
+    os.makedirs('chiprun_out', exist_ok=True)
+    # the path: the probe's entry point, as a user runs it; it also times
+    # each kernel at each of its shapes in a CUDA graph of raw launches,
+    # which the counts do not see
+    reset_counts()
+    result = probe.run('cuda', GATHER_ITERS)
+    got = read_counts()
+    want = {k: 0 for k in got}
+    want['gather'] = len(probe.SEMANTIC_SHAPES)
+    want['gather_loop'] = len(probe.THROUGHPUT) * (1 + GATHER_ITERS)
+    if got != want or not all(r['ok'] for r in result['semantics']):
+        raise AssertionError('gather probe: launches {} (expected {}), '
+                             'semantics {}'.format(got, want,
+                                                   result['semantics']))
+    launches = (got['gather'], got['gather_loop'])
+
+    # both kernels against their plain versions, bit for bit: a gather
+    # moves values, and the loop adds in the plain version's order
+    cases = 0
+    for S, L in probe.SEMANTIC_SHAPES + ((8, 512), (32, 512)):
+        x = torch.randn(S, L, device=dev, generator=gen)
+        idx = torch.randint(0, L, (S, L), device=dev, generator=gen,
+                            dtype=torch.int32)
+        out = lg.lane_gather(x, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(out, lg.lane_gather_reference(x, idx)):
+            raise AssertionError('lane_gather [{},{}] differs from its plain '
+                                 'version'.format(S, L))
+        cases += 1
+    for S in (8, 16, 32):
+        for n in (0, 1, 5, 16, 512):
+            x = torch.randn(S, 512, device=dev, generator=gen)
+            idx = torch.randint(0, 128, (S, 512), device=dev, generator=gen,
+                                dtype=torch.int32)
+            out = lg.lane_gather_loop(x, idx, n)
+            torch.cuda.synchronize()
+            if not torch.equal(out, lg.lane_gather_loop_reference(x, idx, n)):
+                raise AssertionError('lane_gather_loop S={} n={} differs '
+                                     'from its plain version'.format(S, n))
+            cases += 1
+    log('lane-gather kernels vs plain: {} cases bit-equal; the probe path '
+        'launched {} gathers and {} loops'.format(cases, *launches))
+
+    # the kernels' device times are the probe's, from CUDA graphs (a
+    # launch takes less time on the device than the wrapper takes to issue
+    # it); the plain versions and torch.gather (the gather's yardstick) are
+    # timed the same way on the probe's inputs
+    rows = []
+    for r in result['semantics']:
+        S, L = r['S'], r['L']
+        x, idx = probe.inputs(S, L, L, dev)
+        idx64 = idx.long()
+        bytes_ms = 12.0 * S * L / H100_BYTES_PER_S * 1e3
+        rows.append({
+            'kernel': 'gather', 'S': S, 'L': L, 'ms': r['graph_us'] * 1e-3,
+            'plain_ms': probe.graph_time_ms(
+                lambda: lg.lane_gather_reference(x, idx)),
+            'library_ms': probe.graph_time_ms(
+                lambda: torch.gather(x, 1, idx64)),
+            'bytes_ms': bytes_ms, 'ops_ms': 0.0, 'bound_ms': bytes_ms})
+    for r in result['throughput']:
+        S, n = r['S'], r['n_gathers']
+        x, idx = probe.inputs(S, 512, 128, dev)
+        # bytes: x and idx once, out once; operations: the n S 128 fp32
+        # adds of the sums (the four loads an output are in the bytes)
+        bytes_ms = (8.0 * S * 512 + 4.0 * S * 128) / H100_BYTES_PER_S * 1e3
+        ops_ms = n * S * 128 / H100_FP32_ADDS_PER_S * 1e3
+        rows.append({
+            'kernel': 'loop', 'S': S, 'n_gathers': n,
+            'ms': r['graph_us'] * 1e-3,
+            'plain_ms': probe.graph_time_ms(
+                lambda: lg.lane_gather_loop_reference(x, idx, n), n=4),
+            'bytes_ms': bytes_ms, 'ops_ms': ops_ms,
+            'bound_ms': max(bytes_ms, ops_ms)})
+    tot = {}
+    for row in rows:
+        t = tot.setdefault(row['kernel'], {})
+        for k in ('ms', 'plain_ms', 'library_ms', 'bytes_ms', 'ops_ms',
+                  'bound_ms'):
+            if k in row:
+                t[k] = t.get(k, 0.0) + row[k]
+        log('{kernel} {shape}: in a CUDA graph kernel {ms:.5f} ms plain '
+            '{plain_ms:.5f} library {lib}; bound {bound_ms:.3e} ms'.format(
+                shape='[{},{}]'.format(row['S'], row.get('L', 512)) +
+                (' n={}'.format(row['n_gathers']) if 'n_gathers' in row
+                 else ''),
+                lib='{:.5f}'.format(row['library_ms']) if 'library_ms' in row
+                else 'none', **row))
+    with open('chiprun_out/chip_smoke_gather.json', 'w') as f:
+        json.dump({'card': card, 'probe': result, 'cases': cases,
+                   'launches': launches, 'rows': rows, 'totals': tot}, f,
+                  indent=1)
+    g, lp = tot['gather'], tot['loop']
+    return [{
+        'name': 'lane_gather', 'route': 'cuda',
+        'source': 'packnet_sfm_tpu_torch/csrc/lane_gather.cu',
+        'replaces': 'scripts/bench_dynamic_gather.py:23',
+        'launches': launches[0], 'max_abs_err': 0.0,
+        'timed_as': 'one launch at each of [8,128], [8,256], [8,640], '
+                    '[16,128], [32,128], device time in a CUDA graph',
+        'ms': g['ms'], 'plain_ms': g['plain_ms'], 'bound_ms': g['bound_ms'],
+        'bound_by': 'bytes', 'library_ms': g['library_ms']}, {
+        'name': 'lane_gather_loop', 'route': 'cuda',
+        'source': 'packnet_sfm_tpu_torch/csrc/lane_gather.cu',
+        'replaces': 'scripts/bench_dynamic_gather.py:64',
+        'launches': launches[1], 'max_abs_err': 0.0,
+        'timed_as': 'one launch at each of S = 8 and S = 32, n = 512, '
+                    'device time in a CUDA graph',
+        'ms': lp['ms'], 'plain_ms': lp['plain_ms'],
+        'bound_ms': lp['bound_ms'],
+        'bound_by': 'bytes' if lp['bytes_ms'] > lp['ops_ms']
+        else 'operations', 'library_ms': None}]
+
+
+def write_ncdb_tree(root, shape, n_frames, seed=0):
+    """An NCDB-layout tree written with the port's own writers: n_frames
+    uniform RGB frames and, in the depth_original folder that serves both
+    the GT and the LiDAR input, 16-bit depth on 64 beam rows from 40% of
+    the height down, 20% azimuth fill, 1-14 m (eval.make_batches' LiDAR,
+    inside the YAML's 0.5-15 m); and split.json."""
+    import numpy as np
+    from packnet_sfm_tpu_torch.datasets.io import write_depth, write_image
+    rng = np.random.RandomState(seed)
+    H, W = shape
+    rows = np.linspace(int(H * 0.4), H - 1, 64).astype(int)
+    entries = []
+    for sub in ('image_a6', 'newest_original_depth_maps'):
+        os.makedirs(os.path.join(root, 'seq', sub))
+    for i in range(n_frames):
+        stem = 'frame_{:04d}'.format(i)
+        write_image(os.path.join(root, 'seq', 'image_a6', stem + '.png'),
+                    rng.rand(H, W, 3).astype(np.float32))
+        depth = np.zeros((H, W), np.float32)
+        depth[rows] = (rng.rand(len(rows), W) * 13 + 1) * (
+            rng.rand(len(rows), W) < 0.2)
+        write_depth(os.path.join(root, 'seq', 'newest_original_depth_maps',
+                                 stem + '.png'), depth)
+        entries.append({'dataset_root': 'seq', 'new_filename': stem})
+    with open(os.path.join(root, 'split.json'), 'w') as f:
+        json.dump(entries, f)
+    return os.path.join(root, 'seq', 'image_a6')
+
+
+def cli_phase(card, dev, reset_counts, read_counts):
+    """Phase C: the eval and inference CLIs from a checkpoint and a tree on
+    disk (see the module note). Returns the eval CLI's masked-conv
+    launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    from packnet_sfm_tpu_torch import eval as port_eval
+    from packnet_sfm_tpu_torch import infer as port_infer
+    from packnet_sfm_tpu_torch.config import parse_test_file
+    from packnet_sfm_tpu_torch.datasets.io import load_image
+    from torch.profiler import ProfilerActivity, profile
+    from packnet_sfm_tpu_torch.datasets.transforms import resize_image
+    from packnet_sfm_tpu_torch.ops.depth import (
+        inv2depth, sigmoid_to_inv_depth)
+    from packnet_sfm_tpu_torch.parallel.train_step import make_eval_step
+    from packnet_sfm_tpu_torch.trainers import trainer
+    from packnet_sfm_tpu_torch.utils.checkpoint import save_checkpoint
+
+    config, model = port_eval.build(CONFIG, 'cuda', seed=0)
+    shape = port_eval.image_shape(config)
+    summary = {'card': card, 'frames': CLI_FRAMES, 'shape': list(shape)}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        frames = write_ncdb_tree(os.path.join(tmp, 'ncdb'), shape,
+                                 CLI_FRAMES)
+        summary['write_tree_s'] = time.perf_counter() - t0
+        ckpt = save_checkpoint(os.path.join(tmp, 'model.ckpt'), config,
+                               model)
+        summary['checkpoint_mb'] = os.path.getsize(ckpt) / 2 ** 20
+        overrides = ['datasets.test.path', [os.path.join(tmp, 'ncdb')],
+                     'datasets.test.split', ['split.json'],
+                     'datasets.test.input_depth_type', ['depth_original']]
+
+        # the path: the eval CLI's entry point on the checkpoint
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = port_eval.test(ckpt, overrides=overrides)
+        torch.cuda.synchronize()
+        summary['eval_cli_s'] = time.perf_counter() - t0
+        got = read_counts()
+        want = {k: 0 for k in got}
+        want['san_fwd'] = CONVS_PER_FORWARD * CLI_FRAMES
+        if got != want or metrics.skipped:
+            raise AssertionError('eval CLI: launches {} (expected {}), {} '
+                                 'batches skipped'.format(got, want,
+                                                          metrics.skipped))
+        if len(metrics) != 6 * 7 + 1 or not all(
+                np.isfinite(v) for v in metrics.values()):
+            raise AssertionError('eval CLI metrics: {}'.format(metrics))
+
+        # the same loader through `evaluate` with the in-memory model
+        tconfig, _ = parse_test_file(ckpt, overrides=overrides)
+        t0 = time.perf_counter()
+        direct = trainer.evaluate(tconfig, model,
+                                  trainer.make_loader(tconfig, 'test'))
+        torch.cuda.synchronize()
+        summary['eval_loop_s'] = time.perf_counter() - t0
+        err = max(abs(metrics[k] - direct[k]) for k in direct)
+        if sorted(direct) != sorted(metrics) or err > 1e-4:
+            raise AssertionError('eval CLI vs in-memory evaluate: max |err| '
+                                 '{:.3e}'.format(err))
+        summary['cli_vs_memory_max_err'] = err
+
+        # where the loop's time goes: host decode per frame (read, decode,
+        # test transforms) on one thread, and the device's kernel time
+        # over one more pass of the same loop under torch.profiler, against
+        # that pass's wall time (the device's busy share of the loop)
+        ds = trainer.make_loader(tconfig, 'test').dataset
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            ds[i]
+        summary['decode_ms_per_frame'] = (time.perf_counter() - t0) * 1e3 / \
+            len(ds)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.evaluate(tconfig, model,
+                             trainer.make_loader(tconfig, 'test'))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        device_ms = sum(ev.device_time_total for ev in prof.events()
+                        if ev.device_type == torch.autograd.DeviceType.CUDA
+                        ) * 1e-3
+        if device_ms <= 0:
+            raise AssertionError('the profiler saw no device time in the '
+                                 'eval loop')
+        summary['profiled_loop_ms'] = wall_ms
+        summary['device_ms_per_frame'] = device_ms / CLI_FRAMES
+        summary['loop_device_busy_share'] = device_ms / wall_ms
+        summary['eval_cli_img_s'] = CLI_FRAMES / summary['eval_cli_s']
+        summary['eval_loop_img_s'] = CLI_FRAMES / summary['eval_loop_s']
+
+        # the inference CLI on the frame folder: RGB only, no kernel launch
+        out_dir = os.path.join(tmp, 'infer')
+        reset_counts()
+        t0 = time.perf_counter()
+        port_infer.infer_and_save_depth(ckpt, frames, out_dir,
+                                        image_shape=shape, save=('npz',))
+        torch.cuda.synchronize()
+        summary['infer_cli_s'] = time.perf_counter() - t0
+        summary['infer_cli_img_s'] = CLI_FRAMES / summary['infer_cli_s']
+        got = read_counts()
+        if any(got.values()):
+            raise AssertionError('infer CLI launched kernels: {}'.format(got))
+        forward = make_eval_step(model)
+        params = config.model.params
+        derr = 0.0
+        for name in sorted(os.listdir(frames)):
+            rgb = resize_image(load_image(os.path.join(frames, name)), shape)
+            sig = forward({'rgb': torch.from_numpy(rgb[None]).to(dev)})
+            want = inv2depth(sigmoid_to_inv_depth(
+                sig['inv_depths'][0][0].float(), params.min_depth,
+                params.max_depth, params.use_log_space))[..., 0].cpu()
+            saved = torch.from_numpy(np.load(os.path.join(
+                out_dir, name[:-4] + '.npz'))['depth'])
+            torch.testing.assert_close(saved, want, rtol=1e-5, atol=0)
+            derr = max(derr, float((saved - want).abs().max()))
+        summary['infer_vs_forward_max_err_m'] = derr
+    log('eval CLI B1 {}x{} {} from a checkpoint on disk: {} frames in '
+        '{:.3f} s = {:.2f} img/s (checkpoint load and model build '
+        'included), the loop alone {:.2f} img/s; {} masked-conv launches, '
+        '0 skipped; vs in-memory evaluate max |err| {:.2e}; depth-abs_rel '
+        '{:.4f}'.format(shape[0], shape[1], config.tpu.compute_dtype,
+                        CLI_FRAMES, summary['eval_cli_s'],
+                        summary['eval_cli_img_s'], summary['eval_loop_img_s'],
+                        CONVS_PER_FORWARD * CLI_FRAMES, err,
+                        metrics['depth-abs_rel']))
+    log('eval loop: host decode {:.2f} ms a frame on one thread; under the '
+        'profiler device {:.3f} ms a frame over {:.3f} ms of loop, busy '
+        'share {:.3f}; infer CLI {:.2f} img/s, its depth vs the eval forward '
+        'max |err| {:.2e} m'.format(
+            summary['decode_ms_per_frame'], summary['device_ms_per_frame'],
+            summary['profiled_loop_ms'], summary['loop_device_busy_share'],
+            summary['infer_cli_img_s'], derr))
+    with open('chiprun_out/chip_smoke_cli.json', 'w') as f:
+        json.dump(summary, f, indent=1)
+    return CONVS_PER_FORWARD * CLI_FRAMES
 
 
 def time_forward(i, mod, mask, dtype, dname, esize, gen, san_conv):

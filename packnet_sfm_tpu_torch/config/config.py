@@ -1,9 +1,11 @@
 """
-Config parsing: default tree + YAML merge + per-dataset list broadcasting
-(a copy of the JAX package's config/config.py without its checkpoint entry
-points, which the PyTorch port does not have yet).
+Config parsing: default tree + YAML merge + per-dataset list broadcasting,
+and the test entry's checkpoint + YAML (a copy of the JAX package's
+config/config.py without parse_train_file, which waits for checkpoint
+resume in the trainer slice).
 
-Reference: packnet_sfm/utils/config.py:13-44 (prep_dataset), :89-119.
+Reference: packnet_sfm/utils/config.py:13-44 (prep_dataset), :89-119,
+:258-332.
 """
 
 import os
@@ -74,3 +76,19 @@ def parse_train_config(yaml_path=None, overrides=None, defaults=None):
     if overrides:
         cfg.merge_from_list(overrides)
     return prepare_config(cfg)
+
+
+def parse_test_file(ckpt_path, yaml_path=None, overrides=None):
+    """(config, checkpoint payload) of a test entry point: the checkpoint's
+    config, then the optional YAML and the flat ['a.b.c', value, ...]
+    overrides merged over it (reference utils/config.py:258-332)."""
+    from packnet_sfm_tpu_torch.utils.checkpoint import load_checkpoint
+    state = load_checkpoint(ckpt_path)
+    cfg = get_cfg_defaults().clone()
+    cfg.merge_from_dict(state['config'])
+    if yaml_path:
+        cfg.merge_from_file(yaml_path)
+    if overrides:
+        cfg.merge_from_list(overrides)
+    cfg.prepared = False
+    return prepare_config(cfg), state

@@ -1,0 +1,62 @@
+"""
+Datasets of the port, and `setup_dataset`, the dispatch on the dataset name
+of the JAX package's datasets/__init__.py (reference: model_wrapper.py
+setup_dataset): 'ncdb' and 'Synthetic'. 'KITTI', 'DGP' and 'Image' are not
+ported yet and raise.
+"""
+
+from packnet_sfm_tpu_torch.datasets.ncdb import NcdbDataset
+from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticDataset
+from packnet_sfm_tpu_torch.datasets.transforms import get_transforms
+
+_NOT_PORTED = {
+    'KITTI': 'ROADMAP.md section 1: the KITTI dataset',
+    'DGP': 'ROADMAP.md section 1: the Image and DGP datasets',
+    'Image': 'ROADMAP.md section 1: the Image and DGP datasets',
+}
+
+
+def setup_dataset(split_cfg, augmentation_cfg, mode):
+    """The list of datasets of one split from its config node; `mode` is
+    'validation' or 'test' ('train' raises until the trainer slice)."""
+    names = split_cfg.get('dataset', [])
+    if not names:
+        return []
+    paths = split_cfg.get('path', [])
+    splits = split_cfg.get('split', [''] * len(names))
+    depth_types = split_cfg.get('depth_type', [''] * len(names))
+    input_depth_types = split_cfg.get('input_depth_type', [''] * len(names))
+    mask_files = split_cfg.get('mask_file', [''] * len(names))
+    use_masks = split_cfg.get('use_mask', [False] * len(names))
+    back = split_cfg.get('back_context', 0)
+    forward = split_cfg.get('forward_context', 0)
+
+    def pick(values, i, default):
+        return values[i] if i < len(values) else default
+
+    transform = get_transforms(
+        mode, image_shape=tuple(augmentation_cfg.get('image_shape', ())
+                                or ()),
+        crop_eval_borders=tuple(augmentation_cfg.get('crop_eval_borders', ())
+                                or ()))
+    datasets = []
+    for i, name in enumerate(names):
+        if name in _NOT_PORTED:
+            raise NotImplementedError('dataset {!r} is not ported yet ({})'
+                                      .format(name, _NOT_PORTED[name]))
+        if name == 'ncdb':
+            datasets.append(NcdbDataset(
+                path=pick(paths, i, ''), split=pick(splits, i, ''),
+                depth_type=pick(depth_types, i, ''),
+                input_depth_type=pick(input_depth_types, i, ''),
+                mask_file=pick(mask_files, i, ''),
+                use_mask=pick(use_masks, i, False), transform=transform))
+        elif name == 'Synthetic':
+            datasets.append(SyntheticDataset(
+                num_samples=int(splits[i]) if str(splits[i]).isdigit()
+                else 32,
+                with_input_depth=bool(pick(input_depth_types, i, '')),
+                back_context=back, forward_context=forward))
+        else:
+            raise ValueError('Unknown dataset {}'.format(name))
+    return datasets

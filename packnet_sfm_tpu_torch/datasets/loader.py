@@ -1,0 +1,165 @@
+"""
+Host-side data loader: batched, prefetched, one shard (the JAX package's
+datasets/loader.py, before its multi-process sharding, which waits for the
+DDP slice), and the move of a collated batch onto the device.
+
+Samples are decoded by a thread pool (Pillow and numpy release the GIL),
+collated into stacked numpy arrays, and a background thread keeps
+`prefetch` batches ahead of the consumer. The shuffle is keyed by
+(seed, epoch), so (epoch, batches consumed) resumes an epoch exactly.
+
+Unlike the JAX loader, whose producer thread dies on a sample that fails to
+load and leaves the consumer waiting, a failed batch raises its error from
+`next()` and the iteration goes on with the next batch.
+"""
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+# keys that stay on the host (the JAX trainer's _host_prepare)
+HOST_KEYS = ('idx', 'filename', 'rgb_path', 'sensor_name', 'splitname',
+             'dataset_idx')
+
+
+def default_collate(samples):
+    """Stack a list of sample dicts into a batch dict of arrays."""
+    out = {}
+    for key in samples[0]:
+        vals = [s[key] for s in samples]
+        v0 = vals[0]
+        if isinstance(v0, dict):
+            out[key] = default_collate(vals)
+        elif isinstance(v0, (list, tuple)):
+            out[key] = [np.stack([v[i] for v in vals])
+                        for i in range(len(v0))]
+        elif isinstance(v0, np.ndarray):
+            out[key] = np.stack(vals)
+        elif isinstance(v0, (int, float, np.integer, np.floating)):
+            out[key] = np.asarray(vals)
+        else:
+            out[key] = vals  # strings and paths ride along
+    return out
+
+
+def _to_device(value, device):
+    if isinstance(value, np.ndarray):
+        return torch.from_numpy(value).to(device)
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    if isinstance(value, dict):
+        return {k: _to_device(v, device) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_to_device(v, device) for v in value]
+    return value
+
+
+def to_device_batch(batch, device):
+    """A collated batch without its host-only keys, its numpy arrays (in
+    dicts and lists too) as tensors on `device`. Tensors move to `device`;
+    strings stay. A multi-camera batch (rgb [B,N,H,W,3], DGP) raises."""
+    rgb = batch.get('rgb')
+    if rgb is not None and rgb.ndim == 5:
+        raise NotImplementedError(
+            'multi-camera (DGP) batches are not ported yet (ROADMAP.md '
+            'section 1: the Image and DGP datasets)')
+    return {k: _to_device(v, device) for k, v in batch.items()
+            if k not in HOST_KEYS}
+
+
+class _Failure:
+    def __init__(self, error):
+        self.error = error
+
+
+_END = object()
+
+
+class _BatchIterator:
+    """Batches from a producer thread; a batch that failed to load raises
+    its error from __next__, and the next call goes on with the next one."""
+
+    def __init__(self, loader, indices, start, n_batches):
+        self._loader = loader
+        self._queue = queue.Queue(maxsize=loader.prefetch)
+        self._done = False
+        bs = loader.batch_size
+
+        def produce():
+            with ThreadPoolExecutor(loader.num_workers) as pool:
+                for b in range(start, n_batches):
+                    chunk = indices[b * bs:(b + 1) * bs]
+                    try:
+                        item = loader.collate_fn(
+                            list(pool.map(loader.dataset.__getitem__, chunk)))
+                    except Exception as e:  # noqa: BLE001 — handed on
+                        item = _Failure(e)
+                    self._queue.put(item)
+            self._queue.put(_END)
+
+        threading.Thread(target=produce, daemon=True).start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._done:
+            raise StopIteration
+        item = self._queue.get()
+        if item is _END:
+            self._done = True
+            raise StopIteration
+        self._loader._consumed += 1
+        if isinstance(item, _Failure):
+            raise item.error
+        return item
+
+
+class DataLoader:
+    def __init__(self, dataset, batch_size, shuffle=False, seed=42,
+                 num_workers=4, prefetch=2, drop_last=True, collate_fn=None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_workers = max(1, num_workers)
+        self.prefetch = prefetch
+        self.drop_last = drop_last
+        self.collate_fn = collate_fn or default_collate
+        self.epoch = 0
+        self._consumed = 0
+        self._skip = 0
+
+    def set_epoch(self, epoch):
+        """Reshuffle for `epoch` (DistributedSampler.set_epoch)."""
+        self.epoch = epoch
+        self._consumed = 0
+
+    def state_dict(self):
+        """The position for an exact resume: (epoch, batches consumed)."""
+        return {'epoch': self.epoch, 'batches_consumed': self._consumed}
+
+    def load_state_dict(self, state):
+        """Resume at `state`: the next iteration skips the batches that
+        were consumed."""
+        self.epoch = int(state.get('epoch', 0))
+        self._skip = int(state.get('batches_consumed', 0))
+
+    def _indices(self):
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(idx)
+        return idx
+
+    def __len__(self):
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
+
+    def __iter__(self):
+        start, self._skip = self._skip, 0
+        self._consumed = start
+        return _BatchIterator(self, self._indices(), start, len(self))

@@ -1,0 +1,200 @@
+"""
+Sample transforms on the host (numpy, HWC float32 in [0,1]): the eval part
+of the JAX package's datasets/transforms.py.
+
+- validation / test: crop the inputs (eval GT depth stays full-size) ->
+  resize RGB (Pillow LANCZOS, after the float -> uint8 quantization) and
+  the input depth (validation: the sparse-preserving scatter; test:
+  nearest); validation also resizes a mask (nearest);
+- parse_crop_borders: negative = from the far border, float = centred
+  fraction;
+- crops and resizes move the intrinsics (3x3) and the fisheye principal
+  point (distortion_coeffs ux, uy).
+
+The train pipeline (resize of every map, color jitter, advanced
+augmentations) waits for the trainer slice: get_transforms('train') raises.
+"""
+
+import numpy as np
+from PIL import Image
+
+
+def _is_int(x):
+    return isinstance(x, (int, np.integer))
+
+
+def _axis_bounds(start_raw, end_raw, size):
+    """One axis of the 4-value crop form as [start, end). Integers: a
+    negative start counts back from the far border; an end <= 0 also counts
+    from the far border, a positive end is a length from the start. Floats:
+    start_raw is a centre fraction of the axis and end_raw an extent in
+    pixels centred on it."""
+    if _is_int(start_raw):
+        start = start_raw + size if start_raw < 0 else start_raw
+        end = end_raw + size if end_raw <= 0 else start + end_raw
+        return start, end
+    center = start_raw * size
+    return int(center - end_raw / 2), int(center + end_raw / 2)
+
+
+def _axis_margin(value, size):
+    """One axis of the 2-value crop form: a positive value trims from the
+    near border, a negative one from the far border."""
+    return max(0, value), size + min(0, value)
+
+
+def parse_crop_borders(borders, shape):
+    """(left, top, right, bottom) crop window from the crop mini-language:
+    () keeps the image; (ys, ye, xs, xe) resolves each axis on its own
+    (`_axis_bounds`); (extent, value) trims a margin on both axes when value
+    is an int, else centres a window of `extent` pixels at fraction value."""
+    H, W = shape[0], shape[1]
+    if len(borders) == 0:
+        return 0, 0, W, H
+    if len(borders) == 4:
+        ys, ye, xs, xe = borders
+        left, right = _axis_bounds(xs, xe, W)
+        top, bottom = _axis_bounds(ys, ye, H)
+    elif len(borders) == 2:
+        extent, value = borders
+        if _is_int(value):
+            left, right = _axis_margin(value, W)
+            top, bottom = _axis_margin(extent, H)
+        else:
+            left, right = _axis_bounds(value, extent, W)
+            top, bottom = _axis_bounds(value, extent, H)
+    else:
+        raise NotImplementedError('Crop tuple must have 2 or 4 values.')
+    if not (0 <= left < right <= W and 0 <= top < bottom <= H):
+        raise ValueError('Crop borders {} are invalid'.format(
+            (left, top, right, bottom)))
+    return left, top, right, bottom
+
+
+def resize_image(image, shape):
+    """LANCZOS resize of an [H,W,3] float image to (H', W') through uint8."""
+    pil = Image.fromarray(np.clip(image * 255, 0, 255).astype(np.uint8))
+    pil = pil.resize((shape[1], shape[0]), Image.LANCZOS)
+    return np.asarray(pil, np.float32) / 255.0
+
+
+def resize_depth(depth, shape):
+    """Nearest-neighbour depth resize [h,w(,1)] -> [H,W,1]."""
+    d = np.squeeze(depth)
+    h, w = d.shape
+    ys = np.floor(np.arange(shape[0]) * (h / shape[0])).astype(int)
+    xs = np.floor(np.arange(shape[1]) * (w / shape[1])).astype(int)
+    return d[ys][:, xs][..., None].astype(np.float32)
+
+
+def resize_depth_preserve(depth, shape):
+    """Scatter the valid depth points into the resized map (no
+    interpolation)."""
+    if depth is None:
+        return depth
+    d = np.squeeze(depth)
+    h, w = d.shape
+    x = d.reshape(-1)
+    uv = np.mgrid[:h, :w].transpose(1, 2, 0).reshape(-1, 2)
+    idx = x > 0
+    crd, val = uv[idx], x[idx]
+    crd = crd.astype(np.float64)
+    crd[:, 0] = (crd[:, 0] * (shape[0] / h)).astype(np.int32)
+    crd[:, 1] = (crd[:, 1] * (shape[1] / w)).astype(np.int32)
+    crd = crd.astype(np.int32)
+    inside = (crd[:, 0] < shape[0]) & (crd[:, 1] < shape[1])
+    crd, val = crd[inside], val[inside]
+    out = np.zeros(shape, np.float32)
+    out[crd[:, 0], crd[:, 1]] = val
+    return out[..., None]
+
+
+def scale_intrinsics(K, sx, sy):
+    """A 3x3 intrinsics matrix for an image scaled by (sx, sy)."""
+    K = np.copy(K)
+    K[0, 0] *= sx
+    K[1, 1] *= sy
+    K[0, 2] *= sx
+    K[1, 2] *= sy
+    return K
+
+
+def crop_sample(sample, borders):
+    """Crop images, depths, the mask and the principal point."""
+    left, top, right, bottom = borders
+    for key in ('rgb', 'rgb_original'):
+        if key in sample:
+            sample[key] = sample[key][top:bottom, left:right]
+    for key in ('rgb_context', 'rgb_context_original'):
+        if key in sample:
+            sample[key] = [im[top:bottom, left:right] for im in sample[key]]
+    for key in ('depth', 'input_depth', 'mask'):
+        if key in sample and sample[key] is not None:
+            sample[key] = sample[key][top:bottom, left:right]
+    if 'intrinsics' in sample and \
+            np.asarray(sample['intrinsics']).shape == (3, 3):
+        K = np.copy(sample['intrinsics'])
+        K[0, 2] -= left
+        K[1, 2] -= top
+        sample['intrinsics'] = K
+    if 'distortion_coeffs' in sample:
+        dc = dict(sample['distortion_coeffs'])
+        dc['ux'] = dc['ux'] - left
+        dc['uy'] = dc['uy'] - top
+        sample['distortion_coeffs'] = dc
+    return sample
+
+
+def crop_sample_input(sample, borders):
+    """Crop only the model inputs, leaving the eval GT depth full-size."""
+    keep_depth = sample.pop('depth', None)
+    sample = crop_sample(sample, borders)
+    if keep_depth is not None:
+        sample['depth'] = keep_depth
+    return sample
+
+
+def _eval_transforms(sample, image_shape, crop_eval_borders, preserve):
+    if len(crop_eval_borders) > 0:
+        borders = parse_crop_borders(crop_eval_borders,
+                                     sample['rgb'].shape[:2])
+        sample = crop_sample_input(sample, borders)
+    if len(image_shape) > 0:
+        shape = tuple(image_shape)
+        sample['rgb'] = resize_image(sample['rgb'], shape)
+        if 'rgb_context' in sample:
+            sample['rgb_context'] = [resize_image(im, shape)
+                                     for im in sample['rgb_context']]
+        if 'input_depth' in sample:
+            sample['input_depth'] = (resize_depth_preserve if preserve else
+                                     resize_depth)(sample['input_depth'],
+                                                   shape)
+        if preserve and sample.get('mask') is not None:
+            sample['mask'] = resize_depth(sample['mask'], shape)
+    return sample
+
+
+def validation_transforms(sample, image_shape=(), crop_eval_borders=()):
+    """Crop the inputs, resize RGB, scatter the input depth, resize a mask."""
+    return _eval_transforms(sample, image_shape, crop_eval_borders, True)
+
+
+def test_transforms(sample, image_shape=(), crop_eval_borders=()):
+    """Crop the inputs, resize RGB and (nearest) the input depth."""
+    return _eval_transforms(sample, image_shape, crop_eval_borders, False)
+
+
+def get_transforms(mode, image_shape=(), crop_eval_borders=(), **kwargs):
+    """The sample transform of a split: 'validation' or 'test'. The train
+    transforms are not ported yet (ROADMAP.md section 1, the loader-driven
+    training loop)."""
+    if mode == 'train':
+        raise NotImplementedError(
+            'the train transforms are not ported yet (ROADMAP.md section 1: '
+            'the loader-driven training loop)')
+    if mode == 'validation':
+        return lambda s: validation_transforms(s, image_shape,
+                                               crop_eval_borders)
+    if mode == 'test':
+        return lambda s: test_transforms(s, image_shape, crop_eval_borders)
+    raise ValueError('Unknown transform mode {}'.format(mode))

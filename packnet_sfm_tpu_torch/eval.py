@@ -1,13 +1,20 @@
 """
-Depth-completion evaluation entry point of the PyTorch port.
+Depth-completion evaluation entry points of the PyTorch port.
+
+    python -m packnet_sfm_tpu_torch.eval --checkpoint model.ckpt \
+        [--config cfg.yaml] [--half] [--save_folder dir] [KEY VALUE ...]
+
+`test` is the JAX package's scripts/eval.py: the model and its config from
+a checkpoint (the JAX package's format), the optional YAML and KEY VALUE
+overrides merged over that config, the test split read from disk, and the
+flat metrics of trainers/trainer.py `test`.
 
     python -m packnet_sfm_tpu_torch.eval configs/train_resnet_san_ncdb_640x384.yaml
 
-builds the model from the YAML, draws its weights from a seeded
-torch.Generator, makes KITTI-structured RGB + LiDAR batches from a seed
-(there is no dataset or checkpoint in the repository yet) and returns the
-flat metrics dict of trainers/trainer.py `evaluate`. Runs on the card
-unless device='cpu' is passed.
+`main` builds the model from the YAML, draws its weights from a seeded
+torch.Generator, makes KITTI-structured RGB + LiDAR batches from a seed and
+returns the flat metrics of trainers/trainer.py `evaluate`. Both run on the
+card unless device='cpu' is passed.
 """
 
 import argparse
@@ -15,10 +22,11 @@ import argparse
 import numpy as np
 import torch
 
-from packnet_sfm_tpu_torch.config import parse_train_config
+from packnet_sfm_tpu_torch.config import parse_test_file, parse_train_config
 from packnet_sfm_tpu_torch.device import resolve_device
 from packnet_sfm_tpu_torch.models.factory import setup_model, init_weights
-from packnet_sfm_tpu_torch.trainers.trainer import evaluate
+from packnet_sfm_tpu_torch.trainers import trainer
+from packnet_sfm_tpu_torch.utils.checkpoint import load_weights
 
 
 def image_shape(config):
@@ -100,18 +108,65 @@ def main(config_path, device='cuda', batch_size=1, n_batches=2, seed=0,
     config, model = build(config_path, device, seed, overrides)
     batches = make_batches(image_shape(config), batch_size, n_batches, seed,
                            device)
-    return evaluate(config, model, batches)
+    return trainer.evaluate(config, model, batches)
+
+
+def test(ckpt_file, cfg_file=None, half=False, int8=False, save_folder='',
+         int8_weights=False, device='cuda', overrides=None):
+    """Evaluate a checkpoint on its config's test split (datasets.test, all
+    its datasets as one loader) and return the trainer's Metrics
+    (`.skipped` counts the batches that failed). `cfg_file` is a YAML and
+    `overrides` a flat ['a.b.c', value, ...] list merged over the
+    checkpoint's config; `half` evaluates with bf16 convs; `save_folder`
+    also writes each sample's outputs there. The checkpoint's EMA weights
+    are evaluated when it has them (model.optimizer.ema_eval)."""
+    if int8 or int8_weights:
+        raise NotImplementedError('int8 eval is not ported yet (ROADMAP.md '
+                                  'section 1: int8 eval)')
+    dev = resolve_device(device)
+    config, state = parse_test_file(ckpt_file, cfg_file, overrides)
+    if save_folder:
+        config.save.folder = save_folder
+        config.save.pretrained = ckpt_file
+    if half:
+        config.tpu.compute_dtype = 'bfloat16'
+    key = 'ema_params' if state.get('ema_params') is not None and \
+        config.model.optimizer.get('ema_eval', True) else 'params'
+    model = load_weights(setup_model(config), state, key).to(dev).eval()
+    loader = trainer.make_loader(config, 'test')
+    if loader is None:
+        raise ValueError('No test dataset configured (datasets.test)')
+    return trainer.test(config, model, loader)
 
 
 if __name__ == '__main__':
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    ap.add_argument('config')
+    ap.add_argument('--checkpoint', default=None,
+                    help='evaluate this checkpoint on its test split')
+    ap.add_argument('--config', default=None,
+                    help='with --checkpoint: a YAML merged over its config')
+    ap.add_argument('--half', action='store_true',
+                    help='with --checkpoint: bf16 convs')
+    ap.add_argument('--int8', action='store_true',
+                    help='with --checkpoint: int8 outputs (not ported)')
+    ap.add_argument('--int8-weights', action='store_true',
+                    help='with --checkpoint: int8 weights (not ported)')
+    ap.add_argument('--save_folder', default='',
+                    help='with --checkpoint: write per-sample outputs here')
     ap.add_argument('--device', default='cuda')
     ap.add_argument('--batch-size', type=int, default=1)
     ap.add_argument('--n-batches', type=int, default=2)
     ap.add_argument('--seed', type=int, default=0)
-    ap.add_argument('overrides', nargs='*',
-                    help='KEY VALUE pairs merged over the YAML, e.g. '
-                         'model.params.flip_tta True')
+    ap.add_argument('args', nargs='*',
+                    help='without --checkpoint: the YAML, then KEY VALUE '
+                         'pairs merged over it; with --checkpoint: KEY VALUE '
+                         'pairs, e.g. datasets.test.path "[\'/data\']"')
     a = ap.parse_args()
-    main(a.config, a.device, a.batch_size, a.n_batches, a.seed, a.overrides)
+    if a.checkpoint:
+        test(a.checkpoint, a.config, a.half, a.int8, a.save_folder,
+             a.int8_weights, a.device, a.args)
+    elif a.args:
+        main(a.args[0], a.device, a.batch_size, a.n_batches, a.seed,
+             a.args[1:])
+    else:
+        ap.error('give --checkpoint, or a YAML for seeded weights')

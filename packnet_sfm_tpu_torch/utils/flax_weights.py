@@ -14,7 +14,8 @@ leaf `a/b/Conv_1/kernel` lands on `model.a.b.Conv_1`:
 
 Unlike the JAX package's utils/load.py, which keeps the random init for
 names it cannot match, this raises on any missing or unexpected key and on
-any shape mismatch.
+any shape mismatch. `flax_variables` is the inverse: the module's weights
+as the flax tree the JAX model takes.
 """
 
 import numpy as np
@@ -24,6 +25,8 @@ import torch.nn as nn
 _BN_NAMES = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
              'var': 'running_var'}
 _GN_NAMES = {'scale': 'weight', 'bias': 'bias'}
+_BN_LEAVES = {v: k for k, v in _BN_NAMES.items()}
+_GN_LEAVES = {v: k for k, v in _GN_NAMES.items()}
 
 
 def _flatten(tree, prefix=()):
@@ -90,5 +93,33 @@ def load_flax_variables(model, variables):
     state = model.state_dict()
     with torch.no_grad():
         for key, arr in flax_state_dict(model, variables).items():
-            state[key].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            state[key].copy_(torch.from_numpy(np.array(arr, order='C')))
     return model
+
+
+def flax_variables(model):
+    """`model`'s weights as a flax {'params', 'batch_stats'} tree of float32
+    numpy arrays (parameters under 'params', buffers under 'batch_stats';
+    conv weights OIHW -> `kernel` HWIO, BN and GroupNorm names back to
+    flax's), the inverse of `flax_state_dict`, which checks the tree."""
+    param_keys = {name for name, _ in model.named_parameters()}
+    tree = {'params': {}, 'batch_stats': {}}
+    for key, value in model.state_dict().items():
+        if key.endswith('num_batches_tracked'):
+            continue
+        *path, attr = key.split('.')
+        mod = model.get_submodule('.'.join(path))
+        arr = value.detach().cpu().float().numpy()
+        leaf = attr
+        if isinstance(mod, nn.Conv2d) and attr == 'weight':
+            leaf, arr = 'kernel', np.transpose(arr, (2, 3, 1, 0))
+        elif isinstance(mod, nn.BatchNorm2d):
+            leaf = _BN_LEAVES.get(attr, attr)
+        elif isinstance(mod, nn.GroupNorm):
+            leaf = _GN_LEAVES.get(attr, attr)
+        node = tree['params' if key in param_keys else 'batch_stats']
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    flax_state_dict(model, tree)
+    return tree

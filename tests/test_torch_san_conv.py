@@ -133,13 +133,21 @@ def test_port_imports_nothing_of_jax():
     files += [ROOT / 'chip_smoke.py']
     files += sorted((ROOT / 'scripts').glob('torch_*.py'))
     assert len(files) > 15
-    # the generic-camera slice's modules are among them
+    # the generic-camera slice's and the CLI slice's modules are among them
     port = ROOT / 'packnet_sfm_tpu_torch'
     for rel in ('geometry/camera_generic.py', 'losses/generic_photometric.py',
                 'models/generic.py', 'networks/depth/ray_surface_resnet.py',
                 'ops/kernels/generic_projection.py',
-                'csrc/generic_projection.cu'):
+                'csrc/generic_projection.cu', 'ops/kernels/lane_gather.py',
+                'csrc/lane_gather.cu', 'datasets/__init__.py',
+                'datasets/io.py', 'datasets/transforms.py',
+                'datasets/synthetic.py', 'datasets/ncdb.py',
+                'datasets/concat.py', 'datasets/loader.py',
+                'config/config.py', 'utils/checkpoint.py', 'utils/viz.py',
+                'utils/save.py', 'trainers/trainer.py', 'eval.py',
+                'infer.py'):
         assert port / rel in files, rel
+    assert ROOT / 'scripts' / 'torch_bench_dynamic_gather.py' in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
     assert offenders == []

@@ -1,5 +1,8 @@
-"""Fixtures shared by the port's tests (tests/test_torch_*.py)."""
+"""Fixtures and helpers shared by the port's tests (tests/test_torch_*.py)."""
 
+from pathlib import Path
+
+import numpy as np
 import pytest
 import torch
 
@@ -13,3 +16,64 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+CONFIG = str(Path(__file__).resolve().parents[1] / 'configs' /
+             'train_resnet_san_ncdb_640x384.yaml')
+# 32x48 NCDB frames (tests/test_datasets.py make_ncdb_tree) read at 32x64,
+# float32 convs, LiDAR input from the GT folder, as tests/test_ncdb_e2e.py
+CLI_SHAPE = (32, 64)
+
+
+def cli_overrides(ncdb_root):
+    """Config overrides that point the NCDB YAML's test split at a fixture
+    tree and cut it to CPU size."""
+    return ['tpu.compute_dtype', 'float32',
+            'datasets.augmentation.image_shape', CLI_SHAPE,
+            'datasets.test.path', [ncdb_root],
+            'datasets.test.split', ['split.json'],
+            'datasets.test.input_depth_type', ['depth_original'],
+            'datasets.test.batch_size', 2,
+            'datasets.test.num_workers', 2,
+            'checkpoint.filepath', '']
+
+
+def write_jax_checkpoint(path, ncdb_root, seed=4):
+    """A checkpoint written by the JAX package's save_checkpoint: the NCDB
+    YAML's model with randomised variables (kernels ~ 1/sqrt(fan-in), BN
+    scales and variances in [0.5, 1.5], the rest ~ 0.1 N(0, 1), from numpy
+    seed `seed`) and real optax Adam state, its config pointed at
+    `ncdb_root`. Returns the flax variables."""
+    import jax
+    from packnet_sfm_tpu.config import parse_train_config
+    from packnet_sfm_tpu.models.factory import setup_model
+    from packnet_sfm_tpu.parallel.train_step import TrainState, make_optimizer
+    from packnet_sfm_tpu.utils.checkpoint import save_checkpoint
+
+    cfg = parse_train_config(CONFIG, cli_overrides(ncdb_root))
+    model = setup_model(cfg)
+    rng = np.random.RandomState(seed)
+    H, W = CLI_SHAPE
+    batch = {'rgb': np.zeros((1, H, W, 3), np.float32),
+             'input_depth': np.zeros((1, H, W, 1), np.float32)}
+    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), batch,
+                                               train=False))
+
+    def leaf(p, x):
+        name = p[-1].key
+        if name == 'kernel':
+            return (rng.randn(*x.shape) / np.sqrt(np.prod(x.shape[:-1]))
+                    ).astype(np.float32)
+        if name in ('scale', 'var'):
+            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+        return (rng.randn(*x.shape) * 0.1).astype(np.float32)
+
+    variables = jax.tree_util.tree_map_with_path(leaf, shapes)
+    opt = make_optimizer(cfg.model.optimizer, cfg.model.scheduler, 10,
+                         clip_grad=cfg.arch.clip_grad)
+    state = TrainState(params=variables['params'],
+                       batch_stats=variables['batch_stats'],
+                       opt_state=opt.init(variables['params']),
+                       step=np.int32(7), epoch=np.int32(1))
+    save_checkpoint(path, cfg, state)
+    return variables
