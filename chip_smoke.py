@@ -5,19 +5,23 @@ it, with nothing of JAX:
 
 1. print the card (nvidia-smi name and power limit), the torch/CUDA
    versions, and build the CUDA kernels from the checkout's sources (one
-   nvcc per source, all started together);
+   nvcc per source, all started together); fail unless the masked-conv
+   library's SASS holds HMMA (tensor-core) instructions;
 2. hold the masked-conv forward kernel against its plain PyTorch version at
    every shape the slice's 30 SAN convs take at 384x640 B1 (on the eval
-   path's own LiDAR masks) and at edge cases, in float32 (TF32 off, atol =
-   rtol = 1e-4) and bfloat16 (rtol 2e-2, atol 1e-2 x max|ref|: one bf16
-   rounding of the same fp32 sum), and check that an empty mask gives exact
-   zeros; then (a) the dgrad kernel against its plain version at every
-   shape the training step's 27 dgrad launches take at B8 384x640 (on that
-   batch's own LiDAR masks) and at edge cases, under the same rules, with
-   exact zeros wherever no site within the halo is active and on an empty
-   mask, and (b) the whole autograd Function (forward kernel, dgrad kernel,
-   dW/db) against plain autograd through the plain forward (F.conv2d's own
-   backward), on dx, dW and db in float32 and in bfloat16;
+   path's own LiDAR masks), at edge cases and at a 12x20 512 -> 1024 conv
+   that splits K, in float32 (TF32 off, atol = rtol = 1e-4) and bfloat16
+   (rtol 2e-2, atol 1e-2 x max|ref|: one bf16 rounding of the same fp32
+   sum), and check that an empty mask gives exact zeros; then (a) the
+   dgrad kernel against its plain version at every shape the training
+   step's 27 dgrad launches take at B8 384x640 (on that batch's own LiDAR
+   masks), at the edge cases and the split-K one, under the same rules,
+   with exact zeros wherever no site within the halo is active and on an
+   empty mask (each direction must have reached the tensor-core, split-K
+   and CUDA-core paths), and (b) the whole autograd Function (forward
+   kernel, dgrad kernel, dW/db) against plain autograd through the plain
+   forward (F.conv2d's own backward), on dx, dW and db in float32 and in
+   bfloat16;
    then the self-supervised slice's kernels (phase S below): the warp at
    the slice's own grids and sources (B8, grid 768x640, from real steps'
    depths and poses, bf16 and float32 sources) and at edge cases (grids far
@@ -93,7 +97,10 @@ it, with nothing of JAX:
    forward kernel at the eval shapes and both kernels at the train shapes
    beside their plain versions, the library yardstick (one cuDNN call the
    port never makes: F.conv2d, torch.nn.grad.conv2d_input) and the bound
-   for the work the data needs, and the dW library time per step; the
+   for the work the data needs, each kernel and library call both in a
+   loop of calls (CUDA events, the host's issue included) and replayed in
+   a CUDA graph (without it), one line per conv shape and per SAN level,
+   and the dW time per step (san_conv.filter_grad); the
    self-supervised step's ms and img/s under (i) and (ii); the warp and
    photometric kernels over one step's launches beside their plain
    versions, F.grid_sample (the warp's yardstick: out only, no A/B) and
@@ -146,6 +153,9 @@ PHOTO_BWD_PER_STEP = 8                 # the automask maps need no gradient
 SELFSUP_RUNS = (('i', None, 10), ('ii', FP32_MAPS, 3))
 GENERIC_CONFIGS = {'i': 'configs/train_omnicam.yaml',
                    'ii': 'configs/train_omnicam_fullres.yaml'}
+# RaySurfaceResNet '18pt' wants ImageNet weights, which the repository does
+# not hold: the generic runs start from seeded random weights, and say so
+RANDOM_INIT = ['model.depth_net.allow_random_init', True]
 GENERIC_RUNS = (('i', 10), ('ii', 3))
 PROJ_PER_STEP = 2                      # one projection per context frame
 GATHER_ITERS = 200                     # timed launches of each probe shape
@@ -338,6 +348,105 @@ def compare_grads(got, want):
     return rel, worst, norm, zero
 
 
+def hmma_count(lib_path):
+    """The HMMA (tensor-core) instructions in a built library's SASS, by
+    the toolkit's cuobjdump; raises when there are none."""
+    from packnet_sfm_tpu_torch.ops.kernels import build
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), 'cuobjdump')
+    sass = subprocess.run([tool, '-sass', str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    n = sum(' HMMA' in line for line in sass.splitlines())
+    if n == 0:
+        raise AssertionError('{}: no HMMA instruction in its SASS'.format(
+            lib_path))
+    return n
+
+
+def split_modules(dev, gen):
+    """A 12x20 B1 conv of the last SAN level, 512 -> 1024 channels: its
+    forward (K = 512) and its dgrad (K = 1024, N = 512) both split K."""
+    import torch
+    from packnet_sfm_tpu_torch.networks.layers.san import _MaskedConv
+    mod = _MaskedConv(512, 1024, 3).to(dev)
+    with torch.no_grad():
+        mod.kernel.normal_(0.0, 0.02, generator=gen)
+    mask = (torch.rand(1, 12, 20, 1, device=dev, generator=gen) < 0.5).float()
+    mask[:, :3] = 0.0
+    return [(mod, mask)]
+
+
+def launch_path(data, kernel, dgrad):
+    """The wrapper's path for one launch: tensor-core, split-K or
+    cuda-core."""
+    from packnet_sfm_tpu_torch.ops.kernels import san_conv
+    B, H, W, kc = data.shape
+    nc = kernel.shape[2] if dgrad else kernel.shape[3]
+    return san_conv.plan(B, H, W, kc, nc, kernel.shape[0], data.dtype,
+                         san_conv._n_sm(data.device))[0]
+
+
+# the timings each conv row sums: loop times by CUDA events (host issue
+# included, as the path pays it), and times in a CUDA graph (without it)
+TIME_KEYS = ('ms', 'graph_ms', 'plain_ms', 'library_ms',
+             'library_graph_ms', 'bound_ms', 'bytes_ms', 'ops_ms')
+LEVEL_KEYS = ('ms', 'graph_ms', 'library_ms', 'library_graph_ms',
+              'bound_ms')
+
+
+def graph_time_ms(fn, iters=10, reps=5):
+    """The time of one call of fn with the host's issue taken out: `iters`
+    calls captured in a CUDA graph, the graph replayed `reps` times between
+    two CUDA events."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def level_lines(rows, what):
+    """One line per conv shape of each SAN level (H x W, k, Cin -> Cout,
+    path; summed over the launches of that shape) and one per level."""
+    levels = {}
+    for r in rows:
+        lvl = levels.setdefault((r['H'], r['W']), {})
+        key = (r['k'], r['cin'], r['cout'], r['path'])
+        agg = lvl.setdefault(key, dict.fromkeys(LEVEL_KEYS, 0.0))
+        agg['n'] = agg.get('n', 0) + 1
+        for f in LEVEL_KEYS:
+            agg[f] += r[f]
+    out = []
+    for (h, w), lvl in levels.items():
+        tot = {f: sum(a[f] for a in lvl.values()) for f in LEVEL_KEYS}
+        for (k, cin, cout, path), a in lvl.items():
+            log('  {} {}x{} k{} {:4d} -> {:4d} x{} {}: kernel {:.4f} ms '
+                '(graph {:.4f}) cuDNN {:.4f} (graph {:.4f}) bound {:.4f}'
+                .format(what, h, w, k, cin, cout, a['n'], path, a['ms'],
+                        a['graph_ms'], a['library_ms'],
+                        a['library_graph_ms'], a['bound_ms']))
+        log('  {} level {}x{}: kernel {:.4f} ms (graph {:.4f}) cuDNN {:.4f} '
+            '(graph {:.4f}) bound {:.4f}; in a graph {:.2f}x cuDNN'.format(
+                what, h, w, tot['ms'], tot['graph_ms'], tot['library_ms'],
+                tot['library_graph_ms'], tot['bound_ms'],
+                tot['graph_ms'] / tot['library_graph_ms']))
+        out.append({'level': '{}x{}'.format(h, w), **tot})
+    return out
+
+
 def bound(nbytes, flops, dname):
     b_ms = nbytes / H100_BYTES_PER_S * 1e3
     o_ms = flops / H100_FLOPS[dname] * 1e3
@@ -353,7 +462,6 @@ def main():
     os.chdir(root)
     sys.path.insert(0, root)
     import numpy as np
-    import torch.nn.functional as F
     from packnet_sfm_tpu_torch import eval as port_eval
     from packnet_sfm_tpu_torch import train as port_train
     from packnet_sfm_tpu_torch.ops.kernels import (
@@ -379,6 +487,8 @@ def main():
         for line in ptxas.splitlines():
             if 'registers' in line or 'spill' in line or 'Compiling' in line:
                 log('  ptxas:', line.strip())
+    log('san_conv SASS: {} HMMA instructions'.format(
+        hmma_count(built['san_conv'][0])))
     # the comparisons below are against float32 math: no TF32 anywhere
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -395,12 +505,22 @@ def main():
                 'gather': lane_gather.lane_gather,
                 'gather_loop': lane_gather.lane_gather_loop}
 
+    # the split-K reductions, counted apart from the conv launches and
+    # summed over every path run
+    reducers = {'san_fwd': san_conv.masked_conv2d,
+                'san_dgrad': san_conv.masked_conv2d_dgrad}
+    reduce_totals = dict.fromkeys(reducers, 0)
+
     def reset_counts():
         for fn in counters.values():
             fn.launches = 0
+        for fn in reducers.values():
+            fn.reduce_launches = 0
 
     def read_counts():
         torch.cuda.synchronize()
+        for k, fn in reducers.items():
+            reduce_totals[k] += fn.reduce_launches
         return {k: fn.launches for k, fn in counters.items()}
 
     config, model = port_eval.build(CONFIG, 'cuda', seed=0)
@@ -427,10 +547,13 @@ def main():
 
     # ---------------------------------------------------------------- 2
     max_err = {'float32': 0.0, 'bfloat16': 0.0}
-    cases = convs + edge_modules(dev, gen)
+    cases = convs + edge_modules(dev, gen) + split_modules(dev, gen)
+    fwd_paths = {}
     for i, (mod, mask) in enumerate(cases):
         for dt in (torch.float32, torch.bfloat16):
             args = conv_inputs(mod, mask, dt, gen)
+            path = launch_path(args[0], args[2], False)
+            fwd_paths[path] = fwd_paths.get(path, 0) + 1
             got = san_conv.masked_conv2d(*args)
             torch.cuda.synchronize()
             want = san_conv.masked_conv2d_reference(*args)
@@ -447,17 +570,20 @@ def main():
         if bool((out != 0).any()):
             raise AssertionError('empty mask: nonzero output')
     log('forward kernel vs plain: {} cases x fp32/bf16 ok, max |err| fp32 '
-        '{:.3e} bf16 {:.3e}'.format(len(cases), max_err['float32'],
-                                    max_err['bfloat16']))
+        '{:.3e} bf16 {:.3e}; launches by path {}'.format(
+            len(cases), max_err['float32'], max_err['bfloat16'], fwd_paths))
 
     # (a) the dgrad kernel at the train step's shapes and the edge cases
     dmax_err = {'float32': 0.0, 'bfloat16': 0.0}
-    dcases = dconvs + edge_modules(dev, gen)
+    dcases = dconvs + edge_modules(dev, gen) + split_modules(dev, gen)
+    dg_paths = {}
     for i, (mod, mask) in enumerate(dcases):
         k = mod.kernel.shape[0]
         far = halo_empty(mask, k)
         for dt in (torch.float32, torch.bfloat16):
             gm, mk, kern = dgrad_inputs(mod, mask, dt, gen)
+            path = launch_path(gm, kern, True)
+            dg_paths[path] = dg_paths.get(path, 0) + 1
             got = san_conv.masked_conv2d_dgrad(gm, mk, kern)
             torch.cuda.synchronize()
             want = san_conv.masked_conv2d_dgrad_reference(gm, mk, kern)
@@ -476,8 +602,12 @@ def main():
         if bool((out != 0).any()):
             raise AssertionError('dgrad, empty mask: nonzero dx')
     log('dgrad kernel vs plain: {} cases x fp32/bf16 ok, max |err| fp32 '
-        '{:.3e} bf16 {:.3e}'.format(len(dcases), dmax_err['float32'],
-                                    dmax_err['bfloat16']))
+        '{:.3e} bf16 {:.3e}; launches by path {}'.format(
+            len(dcases), dmax_err['float32'], dmax_err['bfloat16'], dg_paths))
+    for what, paths in (('forward', fwd_paths), ('dgrad', dg_paths)):
+        if set(paths) != {'tensor-core', 'split-K', 'cuda-core'}:
+            raise AssertionError('the {} checks reached the paths {}, not '
+                                 'all three'.format(what, sorted(paths)))
 
     # (b) the autograd Function (forward kernel, dgrad kernel, dW / db)
     # against plain autograd through the plain forward (fp32 math, one cast
@@ -669,93 +799,64 @@ def main():
 
     esize = torch.tensor([], dtype=dtype).element_size()
     fwd_rows = []
-    fwd_tot = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
-               'bound_ms': 0.0, 'bytes_ms': 0.0, 'ops_ms': 0.0}
+    fwd_tot = dict.fromkeys(TIME_KEYS, 0.0)
     for i, (mod, mask) in enumerate(convs):
         row = time_forward(i, mod, mask, dtype, dname, esize, gen, san_conv)
         fwd_rows.append(row)
         for key in fwd_tot:
             fwd_tot[key] += row[key]
-    log('30 forward convs, B1 eval: kernel {:.3f} ms, plain {:.3f}, library '
-        '{:.3f}, bound {:.4f} ms'.format(fwd_tot['ms'], fwd_tot['plain_ms'],
-                                         fwd_tot['library_ms'],
-                                         fwd_tot['bound_ms']))
+    log('30 forward convs, B1 eval: kernel {:.3f} ms ({:.3f} in a graph), '
+        'plain {:.3f}, library {:.3f} ({:.3f}), bound {:.4f} ms'.format(
+            fwd_tot['ms'], fwd_tot['graph_ms'], fwd_tot['plain_ms'],
+            fwd_tot['library_ms'], fwd_tot['library_graph_ms'],
+            fwd_tot['bound_ms']))
+    levels = {'forward_b1': level_lines(fwd_rows, 'forward B1')}
     fwd8_rows = []
-    fwd8 = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0, 'bound_ms': 0.0,
-            'bytes_ms': 0.0, 'ops_ms': 0.0}
+    fwd8 = dict.fromkeys(TIME_KEYS, 0.0)
     dw_ms = 0.0
     for i, (mod, mask, _) in enumerate(tconvs):
         row = time_forward(i, mod, mask, dtype, dname, esize, gen, san_conv)
         x, mk, kern, _ = conv_inputs(mod, mask, dtype, gen)
         gm = dgrad_inputs(mod, mask, dtype, gen)[0]
-        k, _, cin, cout = kern.shape
-        row['dw_library_ms'] = cuda_time_ms(
-            lambda: torch.nn.grad.conv2d_weight(
-                x.permute(0, 3, 1, 2), (cout, cin, k, k),
-                gm.permute(0, 3, 1, 2), padding=k // 2), iters=10)
-        dw_ms += row['dw_library_ms']
+        # dW as the Function computes it, TF32 allowed as outside this
+        # script (exact here: bf16 values fit TF32's mantissa)
+        torch.backends.cudnn.allow_tf32 = True
+        row['dw_ms'] = cuda_time_ms(
+            lambda: san_conv.filter_grad(x, gm, kern), iters=10)
+        torch.backends.cudnn.allow_tf32 = False
+        dw_ms += row['dw_ms']
         fwd8_rows.append(row)
         for key in fwd8:
             fwd8[key] += row[key]
-    log('30 forward convs, B{} train: kernel {:.3f} ms, plain {:.3f}, '
-        'library {:.3f}, bound {:.4f} ms; dW (cuDNN conv2d_weight, bf16) '
-        '{:.3f} ms per step'.format(train_bs, fwd8['ms'], fwd8['plain_ms'],
-                                    fwd8['library_ms'], fwd8['bound_ms'],
-                                    dw_ms))
+    log('30 forward convs, B{} train: kernel {:.3f} ms ({:.3f} in a '
+        'graph), plain {:.3f}, library {:.3f} ({:.3f}), bound {:.4f} ms; dW '
+        '(filter_grad: cuDNN on float32 copies) {:.3f} ms per step'.format(
+            train_bs, fwd8['ms'], fwd8['graph_ms'], fwd8['plain_ms'],
+            fwd8['library_ms'], fwd8['library_graph_ms'], fwd8['bound_ms'],
+            dw_ms))
+    levels['forward_b{}'.format(train_bs)] = level_lines(
+        fwd8_rows, 'forward B{}'.format(train_bs))
 
     dg_rows = []
-    dg_tot = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
-              'bound_ms': 0.0, 'bytes_ms': 0.0, 'ops_ms': 0.0}
+    dg_tot = dict.fromkeys(TIME_KEYS, 0.0)
     for i, (mod, mask) in enumerate(dconvs):
-        gm, mk, kern = dgrad_inputs(mod, mask, dtype, gen)
-        k, _, cin, cout = kern.shape
-        B, H, W, _ = gm.shape
-        w_oihw = kern.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        g_cl = gm.permute(0, 3, 1, 2)       # NCHW view, channels-last memory
-        with torch.no_grad():
-            ms = cuda_time_ms(lambda: san_conv._launch_dgrad(gm, mk, kern),
-                              iters=10)
-            plain = cuda_time_ms(
-                lambda: san_conv.masked_conv2d_dgrad_reference(gm, mk, kern),
-                iters=10)
-            lib = cuda_time_ms(lambda: torch.nn.grad.conv2d_input(
-                (B, cin, H, W), w_oihw, g_cl, padding=k // 2), iters=10)
-        active, act_rows, _, tiles = site_stats(mk, k)
-        # gm is read only in its rows with an active site (zero elsewhere)
-        nbytes = (act_rows * W * cout + kern.numel() + B * H * W * cin) * \
-            esize + mk.numel() * 4
-        b_all, b_ms, o_ms = bound(nbytes, 2.0 * k * k * cin * cout * active,
-                                  dname)
-        halo_tiles = float((F.max_pool2d(F.pad(
-            (~halo_empty(mk, k))[..., 0].float()[:, None],
-            (0, -W % 16, 0, -H % 8)), (8, 16), (8, 16)) > 0).float().mean())
-        row = {'conv': i, 'B': B, 'H': H, 'W': W, 'k': int(k),
-               'cin': int(cin), 'cout': int(cout), 'dtype': dname,
-               'active_sites': active, 'active_site_frac':
-               active / (B * H * W), 'active_tile_frac': tiles,
-               'halo_tile_frac': halo_tiles, 'ms': ms, 'plain_ms': plain,
-               'library_ms': lib, 'bound_ms': b_all, 'bytes_ms': b_ms,
-               'ops_ms': o_ms,
-               'bound_by': 'bytes' if b_ms > o_ms else 'operations'}
+        row = time_dgrad(i, mod, mask, dtype, dname, esize, gen, san_conv)
         dg_rows.append(row)
         for key in dg_tot:
             dg_tot[key] += row[key]
-        log('dgrad {:2d} {}x{} k{} {:4d}<-{:4d} sites {:.3f} halo tiles '
-            '{:.3f}: kernel {:.4f} ms plain {:.4f} library {:.4f} bound '
-            '{:.4f} ({})'.format(i, H, W, k, cin, cout,
-                                 row['active_site_frac'], halo_tiles, ms,
-                                 plain, lib, b_all, row['bound_by']))
-    log('27 dgrad launches of one B{} step: kernel {:.3f} ms, plain {:.3f}, '
-        'library {:.3f}, bound {:.4f} ms'.format(
-            train_bs, dg_tot['ms'], dg_tot['plain_ms'], dg_tot['library_ms'],
-            dg_tot['bound_ms']))
+    log('27 dgrad launches of one B{} step: kernel {:.3f} ms ({:.3f} in a '
+        'graph), plain {:.3f}, library {:.3f} ({:.3f}), bound {:.4f} ms'
+        .format(train_bs, dg_tot['ms'], dg_tot['graph_ms'],
+                dg_tot['plain_ms'], dg_tot['library_ms'],
+                dg_tot['library_graph_ms'], dg_tot['bound_ms']))
+    levels['dgrad_b{}'.format(train_bs)] = level_lines(
+        dg_rows, 'dgrad B{}'.format(train_bs))
     os.makedirs('chiprun_out', exist_ok=True)
     with open('chiprun_out/chip_smoke_convs.json', 'w') as f:
         json.dump({'card': card, 'torch': torch.__version__,
                    'forward_ms': fwd_ms, 'flip_tta_step_ms': tta_ms,
                    'train_step_ms': step_ms, 'train_batch': train_bs,
-                   'train_runs': train_runs, 'dw_library_ms': dw_ms,
+                   'train_runs': train_runs, 'dw_ms': dw_ms,
                    'train_fp32_check': {
                        'loss_rel': loss_rel,
                        'kernels_vs_plain': grad_check,
@@ -763,7 +864,8 @@ def main():
                    'fwd_err': fwd_err, 'max_err': max_err,
                    'dgrad_max_err': dmax_err, 'function_rel_err': fn_err,
                    'convs': fwd_rows, 'train_convs': fwd8_rows,
-                   'dgrads': dg_rows}, f, indent=1)
+                   'dgrads': dg_rows, 'levels': levels,
+                   'reduce_launches': reduce_totals}, f, indent=1)
 
     # ---------------------------------------------------------------- 5
     def by(tot):
@@ -777,6 +879,7 @@ def main():
         'launches_by_path': {'eval': eval_launches, 'train': train_fwd,
                              'selfsup': selfsup_launches['san_fwd'],
                              'eval_cli': cli_launches},
+        'reduce_launches': reduce_totals['san_fwd'],
         'max_abs_err': max_err['float32'],
         'max_abs_err_bf16': max_err['bfloat16'],
         'timed_as': '30 launches of one B1 {}x{} eval forward, {}'.format(
@@ -784,23 +887,30 @@ def main():
         'ms': fwd_tot['ms'], 'plain_ms': fwd_tot['plain_ms'],
         'bound_ms': fwd_tot['bound_ms'], 'bound_by': by(fwd_tot),
         'library_ms': fwd_tot['library_ms'],
+        'graph_ms': fwd_tot['graph_ms'],
+        'library_graph_ms': fwd_tot['library_graph_ms'],
         'train_step_ms': fwd8['ms'], 'train_step_plain_ms': fwd8['plain_ms'],
         'train_step_bound_ms': fwd8['bound_ms'],
-        'train_step_library_ms': fwd8['library_ms']}, {
+        'train_step_library_ms': fwd8['library_ms'],
+        'train_step_graph_ms': fwd8['graph_ms'],
+        'train_step_library_graph_ms': fwd8['library_graph_ms']}, {
         'name': 'san_masked_conv2d_dgrad', 'route': 'cuda',
         'source': 'packnet_sfm_tpu_torch/csrc/san_conv.cu',
         'replaces': 'packnet_sfm_tpu/ops/pallas/san_conv.py:184',
         'launches': counts['dgrad'],
         'launches_by_path': {'train': train_dgrad,
                              'selfsup': selfsup_launches['san_dgrad']},
+        'reduce_launches': reduce_totals['san_dgrad'],
         'max_abs_err': dmax_err['float32'],
         'max_abs_err_bf16': dmax_err['bfloat16'],
         'timed_as': '27 launches of one B{} {}x{} train step, {}'.format(
             train_bs, shape[0], shape[1], dname),
         'ms': dg_tot['ms'], 'plain_ms': dg_tot['plain_ms'],
         'bound_ms': dg_tot['bound_ms'], 'bound_by': by(dg_tot),
-        'library_ms': dg_tot['library_ms']}] + selfsup_rows + generic_rows +
-        gather_rows}))
+        'library_ms': dg_tot['library_ms'],
+        'graph_ms': dg_tot['graph_ms'],
+        'library_graph_ms': dg_tot['library_graph_ms']}] + selfsup_rows +
+        generic_rows + gather_rows}))
     log(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -1271,7 +1381,8 @@ def generic_phase(card, dev, gen, reset_counts, read_counts):
     # the step's own kernel inputs: one training step of (i) and of (ii)
     rec = {k: [] for k in ('fwd_i', 'fwd_ii', 'bwd_i', 'bwd_ii')}
     for name, path in GENERIC_CONFIGS.items():
-        _, model = port_train.build(path, 'cuda', seed=0)
+        _, model = port_train.build(path, 'cuda', seed=0,
+                                    overrides=RANDOM_INIT)
         with recording(gp, '_launch_fwd', rec['fwd_' + name]), \
                 recording(gp, '_launch_bwd', rec['bwd_' + name]):
             model(batch)['loss'].backward()
@@ -1396,7 +1507,8 @@ def generic_phase(card, dev, gen, reset_counts, read_counts):
         t0 = time.time()
         run = port_train.main(GENERIC_CONFIGS[name], device='cuda',
                               n_steps=n_steps, seed=0,
-                              batches=[learn] * n_steps)
+                              batches=[learn] * n_steps,
+                              overrides=RANDOM_INIT)
         got = read_counts()
         wall = time.time() - t0
         want = dict.fromkeys(got, 0)
@@ -1432,7 +1544,8 @@ def generic_phase(card, dev, gen, reset_counts, read_counts):
     # (the control; B1 has no reversed batch) plain again with the softmax
     # temperature moved by 3e-7 relative, a few ulps
     _, fmodel = port_train.build(GENERIC_CONFIGS['i'], 'cuda', seed=0,
-                                 overrides=['tpu.compute_dtype', 'float32'])
+                                 overrides=['tpu.compute_dtype', 'float32']
+                                 + RANDOM_INIT)
     temperature = camera_generic.softmax_temperature
     step_grads = []
     for plain, scale in ((False, 1.0), (True, 1.0), (True, 1.0 + 3e-7)):
@@ -1879,12 +1992,17 @@ def time_forward(i, mod, mask, dtype, dname, esize, gen, san_conv):
     w_oihw = kern.permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
     m_nchw = mk.permute(0, 3, 1, 2)
+    def kernel():
+        return san_conv._launch(x, mk, kern, bias)
+
+    def library():
+        return F.conv2d(x_cl, w_oihw, bias, padding=k // 2) * m_nchw
+
     with torch.no_grad():
-        ms = cuda_time_ms(lambda: san_conv._launch(x, mk, kern, bias))
+        ms, graph = cuda_time_ms(kernel), graph_time_ms(kernel)
         plain = cuda_time_ms(
             lambda: san_conv.masked_conv2d_reference(x, mk, kern, bias))
-        lib = cuda_time_ms(
-            lambda: F.conv2d(x_cl, w_oihw, bias, padding=k // 2) * m_nchw)
+        lib, lib_graph = cuda_time_ms(library), graph_time_ms(library)
     active, _, x_rows, tiles = site_stats(mk, k)
     nbytes = (x_rows * W * cin + kern.numel() + bias.numel() +
               B * H * W * cout) * esize + mk.numel() * 4
@@ -1893,14 +2011,72 @@ def time_forward(i, mod, mask, dtype, dname, esize, gen, san_conv):
     row = {'conv': i, 'B': B, 'H': H, 'W': W, 'k': int(k), 'cin': int(cin),
            'cout': int(cout), 'dtype': dname, 'active_sites': active,
            'active_site_frac': active / (B * H * W),
-           'active_tile_frac': tiles, 'ms': ms, 'plain_ms': plain,
-           'library_ms': lib, 'bound_ms': b_all, 'bytes_ms': b_ms,
-           'ops_ms': o_ms, 'bound_by': 'bytes' if b_ms > o_ms
-           else 'operations'}
-    log('conv {:2d} B{} {}x{} k{} {:4d}->{:4d} sites {:.3f} tiles {:.3f}: '
-        'kernel {:.4f} ms plain {:.4f} library {:.4f} bound {:.4f} ({})'
-        .format(i, B, H, W, k, cin, cout, row['active_site_frac'], tiles, ms,
-                plain, lib, b_all, row['bound_by']))
+           'active_tile_frac': tiles, 'ms': ms, 'graph_ms': graph,
+           'plain_ms': plain, 'library_ms': lib,
+           'library_graph_ms': lib_graph, 'bound_ms': b_all,
+           'bytes_ms': b_ms, 'ops_ms': o_ms, 'bound_by': 'bytes'
+           if b_ms > o_ms else 'operations',
+           'path': launch_path(x, kern, False)}
+    log('conv {:2d} B{} {}x{} k{} {:4d}->{:4d} sites {:.3f} tiles {:.3f} {}: '
+        'kernel {:.4f} ms (graph {:.4f}) plain {:.4f} library {:.4f} '
+        '(graph {:.4f}) bound {:.4f} ({})'.format(
+            i, B, H, W, k, cin, cout, row['active_site_frac'], tiles,
+            row['path'], ms, graph, plain, lib, lib_graph, b_all,
+            row['bound_by']))
+    return row
+
+
+def time_dgrad(i, mod, mask, dtype, dname, esize, gen, san_conv):
+    """One dgrad conv's kernel, plain and library (cuDNN conv2d_input,
+    channels-last) times and its bound; gm is read only in its rows with
+    an active site (zero elsewhere)."""
+    import torch
+    import torch.nn.functional as F
+    gm, mk, kern = dgrad_inputs(mod, mask, dtype, gen)
+    k, _, cin, cout = kern.shape
+    B, H, W, _ = gm.shape
+    w_oihw = kern.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    g_cl = gm.permute(0, 3, 1, 2)       # NCHW view, channels-last memory
+
+    def kernel():
+        return san_conv._launch_dgrad(gm, mk, kern)
+
+    def library():
+        return torch.nn.grad.conv2d_input((B, cin, H, W), w_oihw, g_cl,
+                                          padding=k // 2)
+
+    with torch.no_grad():
+        ms, graph = cuda_time_ms(kernel, iters=10), graph_time_ms(kernel)
+        plain = cuda_time_ms(
+            lambda: san_conv.masked_conv2d_dgrad_reference(gm, mk, kern),
+            iters=10)
+        lib = cuda_time_ms(library, iters=10)
+        lib_graph = graph_time_ms(library)
+    active, act_rows, _, tiles = site_stats(mk, k)
+    nbytes = (act_rows * W * cout + kern.numel() + B * H * W * cin) * \
+        esize + mk.numel() * 4
+    b_all, b_ms, o_ms = bound(nbytes, 2.0 * k * k * cin * cout * active,
+                              dname)
+    halo_tiles = float((F.max_pool2d(F.pad(
+        (~halo_empty(mk, k))[..., 0].float()[:, None],
+        (0, -W % 16, 0, -H % 8)), (8, 16), (8, 16)) > 0).float().mean())
+    row = {'conv': i, 'B': B, 'H': H, 'W': W, 'k': int(k),
+           'cin': int(cin), 'cout': int(cout), 'dtype': dname,
+           'active_sites': active, 'active_site_frac':
+           active / (B * H * W), 'active_tile_frac': tiles,
+           'halo_tile_frac': halo_tiles, 'ms': ms, 'graph_ms': graph,
+           'plain_ms': plain, 'library_ms': lib,
+           'library_graph_ms': lib_graph, 'bound_ms': b_all,
+           'bytes_ms': b_ms, 'ops_ms': o_ms,
+           'bound_by': 'bytes' if b_ms > o_ms else 'operations',
+           'path': launch_path(gm, kern, True)}
+    log('dgrad {:2d} {}x{} k{} {:4d}<-{:4d} sites {:.3f} halo tiles {:.3f} '
+        '{}: kernel {:.4f} ms (graph {:.4f}) plain {:.4f} library {:.4f} '
+        '(graph {:.4f}) bound {:.4f} ({})'.format(
+            i, H, W, k, cin, cout, row['active_site_frac'], halo_tiles,
+            row['path'], ms, graph, plain, lib, lib_graph, b_all,
+            row['bound_by']))
     return row
 
 

@@ -4,8 +4,10 @@ decoder (the JAX package's networks/depth/ray_surface_resnet.py; reference
 networks/depth/RaySurfaceResNet.py:34-61,
 layers/resnet/raysurface_decoder.py:16-64).
 
-- ResNet encoder (18/34/50 layers: `version` '18pt' means 18; the weights
-  are random, no pretrained file is read), NCHW inside;
+- ResNet encoder (18/34/50 layers: `version` '18pt' means 18), NCHW
+  inside; a 'pt' version gets its ImageNet weights when train.build builds
+  it (utils/pretrained.py), or raises without them unless
+  model.depth_net.allow_random_init is set;
 - the monodepth2 depth decoder, its sigmoids turned into inverse depths by
   `disp_to_depth(disp, 0.1, 100.0)[0]`: 4 scales in training, 1 in eval;
 - `RaySurfaceDecoder`: the same trunk with its own weights and a 3-channel

@@ -49,11 +49,9 @@ class ResNetSAN01(nn.Module):
                  use_dual_head=False, san_row_window=0.0,
                  dtype=torch.float32):
         super().__init__()
-        num_layers, variant = parse_version(version)
-        if variant != 'A':
-            raise NotImplementedError(
-                'ResNetSAN01 version {!r}: pretrained encoders are not '
-                'ported'.format(version))
+        # the variant ('A', 'pt') builds the same encoder; a 'pt' one gets
+        # its ImageNet weights at build (utils/pretrained.py)
+        num_layers, _ = parse_version(version)
         self.use_film = use_film
         self.use_dual_head = use_dual_head
         self.san_row_window = san_row_window

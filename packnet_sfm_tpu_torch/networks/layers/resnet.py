@@ -29,8 +29,16 @@ class Conv(nn.Conv2d):
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
-                        self.stride, self.padding)
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        if x.device.type == 'cpu' and self.dtype == torch.bfloat16:
+            # PyTorch's CPU bf16 convolution backward reads uninitialised
+            # memory into the filter gradient where the input is one pixel
+            # under a 3x3 stride-2 kernel (PoseNet's conv7 at 32x64): the
+            # same products of bf16 values summed in float32, rounded once
+            return F.conv2d(x.float(), w.float(),
+                            None if b is None else b.float(), self.stride,
+                            self.padding).to(self.dtype)
+        return F.conv2d(x, w, b, self.stride, self.padding)
 
 
 class BatchNorm(nn.BatchNorm2d):

@@ -25,14 +25,20 @@ from packnet_sfm_tpu_torch.device import resolve_device
 from packnet_sfm_tpu_torch.eval import image_shape, make_batches
 from packnet_sfm_tpu_torch.models.factory import setup_model, init_weights
 from packnet_sfm_tpu_torch.trainers.trainer import Trainer
+from packnet_sfm_tpu_torch.utils.pretrained import load_pretrained
 
 
 def build(config_path, device='cuda', seed=0, overrides=None):
-    """(config, training-mode model on `device` with seeded weights)."""
+    """(config, training-mode model on `device`): seeded weights, then the
+    pretrained ones the config asks for (utils/pretrained.py: a 'pt' depth
+    net's ImageNet encoder, which raises PretrainedWeightsNotFound without
+    a file unless model.depth_net.allow_random_init is set; each net's
+    checkpoint_path)."""
     dev = resolve_device(device)
     config = parse_train_config(config_path, overrides)
     model = init_weights(setup_model(config),
                          torch.Generator().manual_seed(seed))
+    load_pretrained(config, model)
     return config, model.to(dev).train()
 
 

@@ -6,7 +6,8 @@ synthetic batch? On one CUDA card.
     python3 scripts/torch_generic_loss_sweep.py [--steps 10] [--seeds 0 1]
 
 For each seed, texture cell (8, 16 px) and context shift (2, 4, 8 px):
-train.main on configs/train_omnicam.yaml (B1 384x384, seeded weights) for
+train.main on configs/train_omnicam.yaml (B1 384x384, seeded weights:
+model.depth_net.allow_random_init, as there is no ImageNet file) for
 `--steps` steps in one epoch of `eval.shifted_context_batch` repeated, and
 print the losses, the fall from the first step to the last in percent, and
 the step of the least loss. Lines go to chiprun_out/generic_loss_sweep.json
@@ -41,9 +42,10 @@ def main():
             for shift in (2, 4, 8):
                 batch = port_eval.shifted_context_batch(base, shift, cell,
                                                         seed)
-                losses = port_train.main(CONFIG, 'cuda', n_steps=a.steps,
-                                         seed=seed,
-                                         batches=[batch] * a.steps)['losses']
+                losses = port_train.main(
+                    CONFIG, 'cuda', n_steps=a.steps, seed=seed,
+                    batches=[batch] * a.steps, overrides=[
+                        'model.depth_net.allow_random_init', True])['losses']
                 row = {'seed': seed, 'cell': cell, 'shift': shift,
                        'losses': losses,
                        'fall_pct': 100 * (losses[0] - losses[-1]) / losses[0],

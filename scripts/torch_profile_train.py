@@ -2,15 +2,19 @@
 """
 Where the time of the PyTorch port's train step goes, on one CUDA card.
 
-    python3 scripts/torch_profile_train.py [CONFIG] [--iters 5] [--batch-size N]
+    python3 scripts/torch_profile_train.py [CONFIG [KEY VALUE ...]] \
+        [--iters 5] [--batch-size N]
     python3 scripts/torch_profile_train.py \
         packnet_sfm_tpu_torch/configs/selfsup_kitti_192x640.yaml
-    python3 scripts/torch_profile_train.py configs/train_omnicam.yaml
+    python3 scripts/torch_profile_train.py configs/train_omnicam.yaml \
+        model.depth_net.allow_random_init true
 
 Builds the model and optimizer of CONFIG (default
-configs/train_resnet_san_ncdb_640x384.yaml; seeded weights), warms up on one
-seeded batch (with context frames and intrinsics when the model has a pose
-net) at the YAML's train batch size unless --batch-size is given, then
+configs/train_resnet_san_ncdb_640x384.yaml; seeded weights; KEY VALUE
+pairs merged over the YAML: a 'pt' config such as the omnicam one needs
+model.depth_net.allow_random_init true without ImageNet weights), warms up
+on one seeded batch (with context frames and intrinsics when the model has
+a pose net) at the YAML's train batch size unless --batch-size is given, then
 traces `--iters` train steps (forward, loss, backward, clip, Adam) with
 torch.profiler and prints: the wall time per step, the device time per step
 summed over kernels, the device busy share of the window, the device time
@@ -35,8 +39,13 @@ KINDS = (('generic projection forward kernel', ('proj_fwd_kernel',)),
          ('warp kernel', ('warp_kernel',)),
          ('photometric forward kernel', ('photometric_fwd_kernel',)),
          ('photometric backward kernel', ('photometric_bwd_kernel',)),
+         # CUDA cores <T, k, dgrad>; tensor cores <k, tile, block_n,
+         # dgrad, split>
          ('masked-conv dgrad kernel', ('masked_conv_kernel', ', true>')),
+         ('masked-conv dgrad kernel', ('masked_conv_tc', ', true, ')),
          ('masked-conv forward kernel', ('masked_conv_kernel',)),
+         ('masked-conv forward kernel', ('masked_conv_tc',)),
+         ('masked-conv split-K reduction', ('splitk_reduce',)),
          ('max-pool', ('max_pool',)),
          ('optimizer (Adam, clip)', ('multi_tensor_apply',)),
          ('cuDNN / CUTLASS conv', ('conv', 'xmma', 'cutlass', 'sm90_',
@@ -60,6 +69,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('config', nargs='?', default=os.path.join(
         'configs', 'train_resnet_san_ncdb_640x384.yaml'))
+    ap.add_argument('overrides', nargs='*',
+                    help='KEY VALUE pairs merged over the YAML')
     ap.add_argument('--iters', type=int, default=5)
     ap.add_argument('--batch-size', type=int, default=None,
                     help='default: the YAML\'s datasets.train.batch_size')
@@ -78,7 +89,7 @@ def main():
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     config, model = port_train.build(os.path.join(ROOT, args.config), 'cuda',
-                                     seed=0)
+                                     seed=0, overrides=args.overrides)
     if args.batch_size is None:
         args.batch_size = int(config.datasets.train.batch_size)
     batch = port_eval.make_batches(port_eval.image_shape(config),

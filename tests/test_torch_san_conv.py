@@ -151,3 +151,64 @@ def test_port_imports_nothing_of_jax():
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
     assert offenders == []
+
+
+# the SAN levels of the slices' 384x640 input and their conv channel pairs
+LEVELS = [(192, 320, 5, ((1, 64), (1, 128), (128, 64), (128, 128))),
+          (96, 160, 5, ((64, 64), (64, 128), (128, 64), (128, 128))),
+          (48, 80, 3, ((64, 128), (64, 256), (256, 128), (256, 256))),
+          (24, 40, 3, ((128, 256), (128, 512), (512, 256), (512, 512))),
+          (12, 20, 3, ((256, 512), (256, 1024), (1024, 512),
+                       (1024, 1024)))]
+
+
+@pytest.mark.parametrize('B,H,W,kc,nc,k,dtype,want', [
+    (1, 192, 320, 1, 64, 5, torch.bfloat16, 'cuda-core'),
+    (8, 192, 320, 128, 128, 5, torch.float32, 'cuda-core'),
+    (1, 5, 3, 1, 1, 3, torch.bfloat16, 'cuda-core'),
+    (1, 9, 20, 64, 1, 5, torch.bfloat16, 'cuda-core'),
+    (8, 192, 320, 128, 128, 5, torch.bfloat16, 'tensor-core'),
+    (2, 17, 33, 24, 96, 5, torch.bfloat16, 'tensor-core'),
+    (2, 19, 35, 16, 24, 3, torch.bfloat16, 'tensor-core'),
+    (1, 12, 20, 1024, 512, 3, torch.bfloat16, 'split-K'),
+    (1, 12, 20, 512, 1024, 3, torch.bfloat16, 'split-K')])
+def test_plan_picks_the_path(B, H, W, kc, nc, k, dtype, want):
+    """float32 and channel counts that are not multiples of 8 take the CUDA
+    cores; bf16 the tensor cores, with K split on the small B1 levels (the
+    split-K cases of chip_smoke.py)."""
+    path, tile, block_n, splits = san_conv.plan(B, H, W, kc, nc, k, dtype)
+    assert path == want
+    if path == 'cuda-core':
+        assert (tile, block_n, splits) == ((0, 0, 0), 0, 1)
+    else:
+        assert (splits > 1) == (path == 'split-K')
+
+
+@pytest.mark.parametrize('B', [1, 8])
+def test_plan_tiles_and_splits_fit_the_kernel(B):
+    """At every SAN shape of the slices: a tile the kernel has (8-wide ones
+    for k = 3 only), 64 or 128 channels a block, every K range non-empty,
+    the grid within CUDA's limits; at least one split at B1; the 12x20
+    level on 4x8 tiles, of 4 images at B8."""
+    splits_seen = 0
+    for H, W, k, pairs in LEVELS:
+        for cin, cout in pairs:
+            for kc, nc in ((cin, cout), (cout, cin)):
+                path, tile, block_n, splits = san_conv.plan(
+                    B, H, W, kc, nc, k, torch.bfloat16)
+                if kc % 8 or nc % 8:
+                    assert path == 'cuda-core'
+                    continue
+                assert tile in san_conv.TC_TILES
+                assert k == 3 or tile[1] == 16
+                assert block_n in (64, 128) and nc % block_n == 0
+                chunks = -(-kc // san_conv.TC_CK)
+                per_split = -(-chunks // splits)
+                assert 1 <= splits <= chunks
+                assert (splits - 1) * per_split < chunks
+                assert -(-B // tile[2]) * splits <= 65535
+                if H == 12:
+                    assert tile[:2] == (4, 8) and tile[2] == (4 if B == 8
+                                                              else 1)
+                splits_seen += splits > 1
+    assert splits_seen > 0 or B == 8

@@ -292,6 +292,37 @@ def test_yaml_matches_bench_selfsup_cfg():
 
 
 @pytest.mark.usefixtures('one_torch_thread')
+def test_bf16_conv_filter_gradient_is_deterministic_on_cpu():
+    """PoseNet's conv7 at a 32x64 input: a bf16 3x3 stride-2 conv of one
+    pixel. PyTorch's CPU bf16 convolution backward reads uninitialised
+    memory into its filter gradient there (garbage up to 3e38, or NaN, the
+    selfsup step's non-finite steps at this size); the port's Conv sums in
+    float32 on the CPU: the same finite gradient every time, that of the
+    bf16-rounded operands."""
+    from packnet_sfm_tpu_torch.networks.layers.resnet import Conv
+    rng = np.random.RandomState(0)
+    conv = Conv(256, 256, 3, 2, 1, True, 'xavier', torch.bfloat16)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(
+            rng.randn(256, 256, 3, 3).astype(np.float32) * 0.05))
+    x = torch.from_numpy(rng.randn(2, 256, 1, 1).astype(np.float32))
+    g = torch.from_numpy(rng.randn(2, 256, 1, 1).astype(np.float32))
+    grads = []
+    for _ in range(4):
+        junk = [torch.full((1024, 1024), float('nan')) for _ in range(8)]
+        del junk  # freed memory full of NaN for the backward to find
+        conv.zero_grad(set_to_none=True)
+        conv(x).float().backward(g)
+        grads.append(conv.weight.grad.clone())
+    want = torch.nn.grad.conv2d_weight(
+        x.bfloat16().float(), conv.weight.shape, g.bfloat16().float(), 2, 1)
+    for got in grads:
+        assert torch.equal(got, grads[0]) and bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-2,
+                                   atol=1e-2 * float(want.abs().max()))
+
+
+@pytest.mark.usefixtures('one_torch_thread')
 def test_train_main_selfsup_on_cpu():
     """Both chip paths at a tiny size: bf16 maps, and float32 maps through
     the kernels' Function; the wrappers count no launch on the CPU."""
