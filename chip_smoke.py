@@ -59,17 +59,19 @@ it, with nothing of JAX:
    against its plain version (rows, cols, m, s) and the backward kernels
    against the plain formula on the same residuals (twice: bit-equal), at
    the step's own planes (192x192 from configs/train_omnicam.yaml, 384x384
-   from configs/train_omnicam_fullres.yaml) and at edge shapes (41x41,
-   41x97, B2 45x60; rays near the pinhole template at the temperatures of
-   progress 0 and 1, and random rays at temperature 1), the Function
+   from configs/train_omnicam_fullres.yaml), at two other windows (p = 7
+   at 45x60, p = 23 at 50x53) and at edge shapes (41x41, 41x97, B2 45x60;
+   rays near the pinhole template at the temperatures of progress 0 and
+   1, and random rays at temperature 1), the Function
    against plain autograd; train.main on both YAMLs at B1 384x384 on one
    batch with something to learn (a smooth target, context frames that are
    the target shifted by 4 px; 10 steps of (i), the last loss below the
    first; 3 of (ii)), the counts reset just before and read just after
-   each run: per step 2 projection forwards, 2 backward calls (2 launches
-   each) and 2 warps, no masked-conv or photometric launch; and one
-   float32 step of (i) at progress 0.5 through every kernel against every
-   plain version, held to the limits of the train step, with the plain
+   each run: per step 2 projection forwards, 2 backward calls (one
+   launch each, dray's and dd's tiles) and 2 warps, no masked-conv or
+   photometric launch; and one float32 step of (i) at progress 0.5
+   through every kernel against every plain version, held to the limits
+   of the train step, with the plain
    step at a temperature moved by 3e-7 logged as the control (B1 has no
    reversed batch);
    then the lane-gather probes (phase Q): the probe's entry point
@@ -102,12 +104,17 @@ it, with nothing of JAX:
    a CUDA graph (without it), one line per conv shape and per SAN level,
    and the dW time per step (san_conv.filter_grad); the
    self-supervised step's ms and img/s under (i) and (ii); the warp and
-   photometric kernels over one step's launches beside their plain
-   versions, F.grid_sample (the warp's yardstick: out only, no A/B) and
-   their bounds; the generic step's ms under (i) and (ii) and the
-   projection kernels over one step's calls beside their plain versions
-   and their bounds (bytes, fp32 operations or exps at the SFU rate,
-   whichever is larger; no library call computes this function);
+   photometric kernels over one step's launches, in a loop and in a CUDA
+   graph, beside their plain versions and their bounds; the warp's
+   yardstick for the same function, F.grid_sample with its grid gradient
+   (aten.grid_sampler_2d_backward) against the warp with
+   WarpFunction.backward's dgrid math, both in a graph (and F.grid_sample
+   out only, in a loop, as before); the generic step's ms under (i) and
+   (ii) and the projection kernels over one step's calls, in a loop and in
+   a graph, the backward's dd and dray tiles apart in a graph, beside
+   their plain versions and their bounds (bytes, fp32 operations or exps
+   at the SFU rate, whichever is larger; no library call computes this
+   function);
 5. (e) print the kernels line with all nine kernels, then the device line
    last.
 
@@ -157,6 +164,7 @@ GENERIC_CONFIGS = {'i': 'configs/train_omnicam.yaml',
 # not hold: the generic runs start from seeded random weights, and say so
 RANDOM_INIT = ['model.depth_net.allow_random_init', True]
 GENERIC_RUNS = (('i', 10), ('ii', 3))
+PADDING_MODES = {'zeros': 0, 'border': 1}   # aten.grid_sampler_2d's codes
 PROJ_PER_STEP = 2                      # one projection per context frame
 GATHER_ITERS = 200                     # timed launches of each probe shape
 CLI_FRAMES = 8                         # frames of the phase C tree
@@ -451,6 +459,20 @@ def bound(nbytes, flops, dname):
     b_ms = nbytes / H100_BYTES_PER_S * 1e3
     o_ms = flops / H100_FLOPS[dname] * 1e3
     return max(b_ms, o_ms), b_ms, o_ms
+
+
+def projection_bound(ray_p, p, planes, flops):
+    """The generic projection's bound at ray_p [B,3,H,W] and window p:
+    `planes` [B,H,W] fp32 planes moved once, `flops` fp32 operations a
+    candidate (pixel, window position) at 67 TFLOP/s, one exp a candidate
+    at the SFU rate; (bound ms, bytes ms, operations ms, what sets it)."""
+    B, _, H, W = ray_p.shape
+    n_cand = B * H * W * (2 * p + 1) ** 2
+    b_all, b_ms, o_ms = bound(planes * B * H * W * 4, flops * n_cand,
+                              'float32')
+    e_ms = n_cand / H100_SFU_PER_S * 1e3
+    parts = {'bytes': b_ms, 'fp32 operations': o_ms, 'exps': e_ms}
+    return max(b_all, e_ms), b_ms, max(o_ms, e_ms), max(parts, key=parts.get)
 
 
 def main():
@@ -1201,29 +1223,67 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
     del trainers
 
     # the kernels over one step's launches (each launch on its own inputs,
-    # so the 50 MB L2 holds at most the last of them), the plain versions,
-    # the yardstick and the bound from this run's inputs
+    # so the 50 MB L2 holds at most the last of them), in a loop of calls
+    # (the host's issue included) and replayed in a CUDA graph (without
+    # it), the plain versions, the yardsticks and the bound from this run's
+    # inputs
     def over_step(fn, items, iters=10):
         return cuda_time_ms(lambda: [fn(*a) for a in items], iters=iters)
+
+    def over_step_graph(fn, items):
+        return graph_time_ms(lambda: [fn(*a) for a in items])
+
+    def warp_with_dgrid(img, grid, mode, g):
+        """The warp launch and WarpFunction.backward's dgrid math."""
+        _, A, Bv = warp._launch(img, grid, mode)
+        H, W = img.shape[1], img.shape[2]
+        dgx = (g * A).sum(-1) * (0.5 * (W - 1))
+        dgy = (g * Bv).sum(-1) * (0.5 * (H - 1))
+        if mode == 'border':
+            xu = (grid[..., 0] + 1.0) * 0.5 * (W - 1)
+            yu = (grid[..., 1] + 1.0) * 0.5 * (H - 1)
+            dgx = dgx * ((xu >= 0) & (xu <= W - 1)).to(dgx.dtype)
+            dgy = dgy * ((yu >= 0) & (yu <= H - 1)).to(dgy.dtype)
+        return torch.stack([dgx, dgy], dim=-1)
+
+    def grid_sample_with_dgrid(im, grid, mode, g):
+        """The same function by PyTorch: F.grid_sample's out and its grid
+        gradient (aten.grid_sampler_2d_backward, output_mask (False,
+        True))."""
+        out = F.grid_sample(im, grid, mode='bilinear', padding_mode=mode,
+                            align_corners=True)
+        return out, torch.ops.aten.grid_sampler_2d_backward(
+            g, im, grid, 0, PADDING_MODES[mode], True, [False, True])[1]
 
     with torch.no_grad():
         w_items = rec['warp_i']
         w_ms = over_step(warp._launch, w_items)
+        w_graph = over_step_graph(warp._launch, w_items)
         w_plain = over_step(warp.bilinear_warp_reference, w_items, 5)
         # F.grid_sample samples out only (no A, B), and takes the grid in
         # the image's dtype: timed on a float32 copy of each source
-        lib_items = [(img.float().permute(0, 3, 1, 2), grid, mode)
-                     for img, grid, mode in w_items]
-        w_lib = over_step(lambda im, gr, md: F.grid_sample(
+        lib_items = [(img.float().permute(0, 3, 1, 2).contiguous(), grid,
+                      mode) for img, grid, mode in w_items]
+        w_lib_out = over_step(lambda im, gr, md: F.grid_sample(
             im, gr, mode='bilinear', padding_mode=md, align_corners=True),
             lib_items)
+        # the same function: out and dgrid from a float32 cotangent of out
+        cots = [torch.randn(grid.shape[:3] + img.shape[3:], device=dev,
+                            generator=gen) for img, grid, _ in w_items]
+        w_dgrid_graph = over_step_graph(
+            warp_with_dgrid, [a + (g,) for a, g in zip(w_items, cots)])
+        w_lib_graph = over_step_graph(grid_sample_with_dgrid, [
+            a + (g.permute(0, 3, 1, 2).contiguous(),)
+            for a, g in zip(lib_items, cots)])
         f_items = [(xp, yp, 0.85, 1e-4, 9e-4) for xp, yp, *_ in rec['fwd']]
         f_ms = over_step(photometric._launch_fwd, f_items)
+        f_graph = over_step_graph(photometric._launch_fwd, f_items)
         f_plain = over_step(photometric.photometric_fwd_reference,
                             [a[:2] for a in f_items], 5)
         b_items = [(xp, yp, g, 0.85, 1e-4, 9e-4)
                    for xp, yp, g, *_ in rec['bwd']]
         b_ms = over_step(photometric._launch_bwd, b_items)
+        b_graph = over_step_graph(photometric._launch_bwd, b_items)
         b_plain = over_step(photometric.photometric_bwd_reference,
                             [a[:3] for a in b_items], 5)
 
@@ -1255,14 +1315,17 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
             else 'operations'
         return b_all, by
 
-    times = {'warp': (w_ms, w_plain, w_lib, *total(wb)),
-             'photometric_fwd': (f_ms, f_plain, None, *total(fb)),
-             'photometric_bwd': (b_ms, b_plain, None, *total(bb))}
-    for k, (ms, plain, lib, b_ms_, by) in times.items():
-        log('{} over one step\'s launches: kernel {:.4f} ms, plain {:.4f}, '
-            'library {}, bound {:.4f} ms ({})'.format(
-                k, ms, plain, 'none' if lib is None else '{:.4f}'.format(lib),
-                b_ms_, by))
+    times = {'warp': (w_ms, w_graph, w_plain, w_lib_graph, *total(wb)),
+             'photometric_fwd': (f_ms, f_graph, f_plain, None, *total(fb)),
+             'photometric_bwd': (b_ms, b_graph, b_plain, None, *total(bb))}
+    for k, (ms, graph, plain, lib, b_ms_, by) in times.items():
+        log('{} over one step\'s launches: kernel {:.4f} ms (graph {:.4f}), '
+            'plain {:.4f}, library {}, bound {:.4f} ms ({})'.format(
+                k, ms, graph, plain, 'none' if lib is None else
+                '{:.4f} (graph)'.format(lib), b_ms_, by))
+    log('warp and its dgrid math in a graph {:.4f} ms; F.grid_sample with '
+        'its grid gradient {:.4f}; F.grid_sample out only, in a loop '
+        '{:.4f}'.format(w_dgrid_graph, w_lib_graph, w_lib_out))
 
     n_launch = {k: sum(r[k] for r in launches_by_run.values())
                 for k in ('warp', 'photo_fwd', 'photo_bwd', 'san_fwd',
@@ -1278,10 +1341,16 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
         'max_abs_err_bf16': warp_err['bfloat16'],
         'timed_as': '{} launches of one B{} {}x{} selfsup step (i), bf16 '
                     'source'.format(len(w_items), bs, *shape),
-        'ms': w_ms, 'plain_ms': w_plain, 'bound_ms': times['warp'][3],
-        'bound_by': times['warp'][4], 'library_ms': w_lib,
-        'library_call': 'F.grid_sample(bilinear, align_corners=True) on a '
-                        'float32 copy, out only'}, {
+        'ms': w_ms, 'graph_ms': w_graph, 'plain_ms': w_plain,
+        'bound_ms': times['warp'][4], 'bound_by': times['warp'][5],
+        'library_ms': w_lib_graph,
+        'library_call': 'F.grid_sample(bilinear, align_corners=True) and '
+                        'aten.grid_sampler_2d_backward(output_mask=(False, '
+                        'True)) on a float32 copy, in a CUDA graph, against '
+                        'the kernel with WarpFunction.backward\'s dgrid '
+                        'math (kernel_with_dgrid_graph_ms)',
+        'kernel_with_dgrid_graph_ms': w_dgrid_graph,
+        'library_out_only_ms': w_lib_out}, {
         'name': 'photometric_fwd', 'route': 'cuda',
         'source': 'packnet_sfm_tpu_torch/csrc/photometric.cu',
         'replaces': 'packnet_sfm_tpu/ops/pallas/photometric.py:94',
@@ -1290,9 +1359,9 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
         'max_abs_err': photo_err['fwd'],
         'timed_as': '{} launches of one B{} {}x{} selfsup step (ii)'.format(
             len(f_items), bs, *shape),
-        'ms': f_ms, 'plain_ms': f_plain, 'bound_ms': times[
-            'photometric_fwd'][3], 'bound_by': times['photometric_fwd'][4],
-        'library_ms': None}, {
+        'ms': f_ms, 'graph_ms': f_graph, 'plain_ms': f_plain,
+        'bound_ms': times['photometric_fwd'][4],
+        'bound_by': times['photometric_fwd'][5], 'library_ms': None}, {
         'name': 'photometric_bwd', 'route': 'cuda',
         'source': 'packnet_sfm_tpu_torch/csrc/photometric.cu',
         'replaces': 'packnet_sfm_tpu/ops/pallas/photometric.py:133',
@@ -1301,9 +1370,9 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
         'max_abs_err': photo_err['bwd'],
         'timed_as': '{} launches of one B{} {}x{} selfsup step (ii)'.format(
             len(b_items), bs, *shape),
-        'ms': b_ms, 'plain_ms': b_plain, 'bound_ms': times[
-            'photometric_bwd'][3], 'bound_by': times['photometric_bwd'][4],
-        'library_ms': None}]
+        'ms': b_ms, 'graph_ms': b_graph, 'plain_ms': b_plain,
+        'bound_ms': times['photometric_bwd'][4],
+        'bound_by': times['photometric_bwd'][5], 'library_ms': None}]
     summary = {'card': card, 'batch': bs, 'shape': list(shape),
                'step_ms': step_ms,
                'img_per_s': {k: bs * 1e3 / v for k, v in step_ms.items()},
@@ -1336,7 +1405,8 @@ def pinhole_planes(B, H, W, gen, noise):
 
 def projection_cases(rec, gen):
     """(tag, ray_p, d_p, p) for the kernel checks: the step's own inputs,
-    then edge shapes (41x41, 41x97, B2 45x60) with rays near the pinhole
+    two other windows (p = 7 at 45x60, p = 23 at 50x53, progress 0), then
+    edge shapes (41x41, 41x97, B2 45x60) with rays near the pinhole
     template and directions divided by the temperature of progress 0 and 1
     (a peaked softmax), and random unnormalised rays at temperature 1 (a
     flat one)."""
@@ -1345,6 +1415,14 @@ def projection_cases(rec, gen):
         softmax_temperature)
     cases = [('step ' + tag, a[0], a[1], a[2])
              for tag in ('i', 'ii') for a in rec['fwd_' + tag]]
+    # windows other than the configs' p = 20, for the kernels' chunks whose
+    # every slot is tested (k1 = 15 < 41) and for a second, partial chunk
+    # a window row (k1 = 47 > 44)
+    for B, H, W, p in ((1, 45, 60, 7), (1, 50, 53, 23)):
+        ray = pinhole_planes(B, H, W, gen, 0.01)
+        d = pinhole_planes(B, H, W, gen, 0.01) / softmax_temperature(0.0)
+        cases.append(('{}x{}x{} p{}'.format(B, H, W, p), ray, d.contiguous(),
+                      p))
     for B, H, W in ((1, 41, 41), (1, 41, 97), (2, 45, 60)):
         ray = pinhole_planes(B, H, W, gen, 0.01)
         for progress in (0.0, 1.0):
@@ -1370,6 +1448,7 @@ def generic_phase(card, dev, gen, reset_counts, read_counts):
     from packnet_sfm_tpu_torch import train as port_train
     from packnet_sfm_tpu_torch.config import parse_train_config
     from packnet_sfm_tpu_torch.geometry import camera_generic
+    from packnet_sfm_tpu_torch.ops.kernels import build
     from packnet_sfm_tpu_torch.ops.kernels import generic_projection as gp
 
     config = parse_train_config(GENERIC_CONFIGS['i'])
@@ -1607,31 +1686,51 @@ def generic_phase(card, dev, gen, reset_counts, read_counts):
     def over_step(fn, items, iters=10):
         return cuda_time_ms(lambda: [fn(*a) for a in items], iters=iters)
 
-    def proj_bound(ray_p, p, planes, flops):
-        B, _, H, W = ray_p.shape
-        n_cand = B * H * W * (2 * p + 1) ** 2
-        b_all, b_ms, o_ms = bound(planes * B * H * W * 4, flops * n_cand,
-                                  'float32')
-        e_ms = n_cand / H100_SFU_PER_S * 1e3
-        parts = {'bytes': b_ms, 'fp32 operations': o_ms, 'exps': e_ms}
-        return max(b_all, e_ms), b_ms, max(o_ms, e_ms), max(parts,
-                                                             key=parts.get)
+    def bwd_launch(symbol):
+        """One half of the backward call alone, dd's or dray's tiles (the C
+        entry points generic_projection_bwd_dd and _dray), on preallocated
+        outputs; for timing only, not counted."""
+        fn = build.function('generic_projection', symbol, 10, 4)
 
+        def run(ray, d, rows, cols, m, s, gy, gx, p, out):
+            B, _, H, W = ray.shape
+            rc = fn(*[t.data_ptr() for t in (ray, d, rows, cols, m, s, gy,
+                                                gx, *out)], B, H, W, p,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError('{}: cudaError {}'.format(symbol, rc))
+        return run
+
+    def graph_parts(items):
+        outs = [(torch.empty_like(a[0]), torch.empty_like(a[1]))
+                for a in items]
+        return {part: graph_time_ms(lambda fn=bwd_launch(
+                    'generic_projection_bwd_' + part): [
+                    fn(*a, out=o) for a, o in zip(items, outs)])
+                for part in ('dd', 'dray')}
+
+    # loop and graph times of the step's calls; the backward's dd and dray
+    # tiles apart, each in a graph
     times = {}
     with torch.no_grad():
         for name in ('i', 'ii'):
             f_items, b_items = rec['fwd_' + name], rec['bwd_' + name]
             # forward: ray_p, d_p in (6 planes), rows, cols, m, s out (4);
             # backward: those 10 and gy, gx in, dray, dd out (18)
-            fb = [proj_bound(a[0], a[2], 10, 12) for a in f_items]
-            bb = [proj_bound(a[0], a[8], 18, 24) for a in b_items]
+            fb = [projection_bound(a[0], a[2], 10, 12) for a in f_items]
+            bb = [projection_bound(a[0], a[8], 18, 24) for a in b_items]
             times[name] = {
                 'fwd': (over_step(gp._launch_fwd, f_items),
                         over_step(gp.generic_projection_fwd_reference,
-                                  f_items, 3), fb),
+                                  f_items, 3), fb,
+                        graph_time_ms(lambda items=f_items: [
+                            gp._launch_fwd(*a) for a in items]), {}),
                 'bwd': (over_step(gp._launch_bwd, b_items),
                         over_step(gp.generic_projection_bwd_reference,
-                                  b_items, 3), bb)}
+                                  b_items, 3), bb,
+                        graph_time_ms(lambda items=b_items: [
+                            gp._launch_bwd(*a) for a in items]),
+                        graph_parts(b_items))}
     rows_out, summary_times = [], {}
     for kname, key, line, replaces in (
             ('generic_projection_fwd', 'fwd', ':81', 'forward'),
@@ -1642,15 +1741,19 @@ def generic_phase(card, dev, gen, reset_counts, read_counts):
         by = 'bytes' if sum(b[1] for b in t_i[2]) > sum(
             b[2] for b in t_i[2]) else 'operations'
         summary_times[kname] = {
-            'i': {'ms': t_i[0], 'plain_ms': t_i[1], 'bound_ms': b_i,
-                  'set_by': t_i[2][0][3]},
-            'ii': {'ms': t_ii[0], 'plain_ms': t_ii[1], 'bound_ms': b_ii,
-                   'set_by': t_ii[2][0][3]}}
-        log('projection {} over one step\'s {} calls: (i) kernel {:.4f} ms, '
-            'plain {:.4f}, bound {:.4f} ms (set by {}); (ii) kernel {:.4f} '
-            'ms, plain {:.4f}, bound {:.4f} ms; library none'.format(
-                replaces, PROJ_PER_STEP, t_i[0], t_i[1], b_i, t_i[2][0][3],
-                t_ii[0], t_ii[1], b_ii))
+            tag: {'ms': t[0], 'graph_ms': t[3], 'plain_ms': t[1],
+                  'bound_ms': bd, 'set_by': t[2][0][3],
+                  **{part + '_graph_ms': v for part, v in t[4].items()}}
+            for tag, t, bd in (('i', t_i, b_i), ('ii', t_ii, b_ii))}
+        parts = lambda t: ''.join(', {} {:.4f}'.format(k, v)
+                                  for k, v in t[4].items())
+        log('projection {} over one step\'s {} calls: (i) kernel {:.4f} ms '
+            '(graph {:.4f}{}), plain {:.4f}, bound {:.4f} ms (set by {}); '
+            '(ii) kernel {:.4f} ms (graph {:.4f}{}), plain {:.4f}, bound '
+            '{:.4f} ms; library none'.format(
+                replaces, PROJ_PER_STEP, t_i[0], t_i[3], parts(t_i), t_i[1],
+                b_i, t_i[2][0][3], t_ii[0], t_ii[3], parts(t_ii), t_ii[1],
+                b_ii))
         rows_out.append({
             'name': kname, 'route': 'cuda',
             'source': 'packnet_sfm_tpu_torch/csrc/generic_projection.cu',
@@ -1664,12 +1767,15 @@ def generic_phase(card, dev, gen, reset_counts, read_counts):
                             else bwd_err),
             'timed_as': '{} {} of one B{} {}x{} step (i), {}x{} planes'
                         .format(PROJ_PER_STEP, 'launches' if key == 'fwd'
-                                else 'calls (2 launches each)', bs, *shape,
+                                else 'calls (1 launch each)', bs, *shape,
                                 *sizes['i'][2:]),
-            'ms': t_i[0], 'plain_ms': t_i[1], 'bound_ms': b_i,
-            'bound_by': by, 'bound_set_by': t_i[2][0][3],
+            'ms': t_i[0], 'graph_ms': t_i[3], 'plain_ms': t_i[1],
+            'bound_ms': b_i, 'bound_by': by, 'bound_set_by': t_i[2][0][3],
             'library_ms': None,
-            'ii_ms': t_ii[0], 'ii_plain_ms': t_ii[1], 'ii_bound_ms': b_ii})
+            **{part + '_graph_ms': v for part, v in t_i[4].items()},
+            'ii_ms': t_ii[0], 'ii_graph_ms': t_ii[3],
+            'ii_plain_ms': t_ii[1], 'ii_bound_ms': b_ii,
+            **{'ii_' + part + '_graph_ms': v for part, v in t_ii[4].items()}})
     summary = {'card': card, 'batch': bs, 'shape': list(shape),
                'planes': {k: list(v) for k, v in sizes.items()},
                'step_ms': step_ms,
@@ -1796,15 +1902,16 @@ def gather_phase(card, dev, gen, reset_counts, read_counts):
         'launches': launches[0], 'max_abs_err': 0.0,
         'timed_as': 'one launch at each of [8,128], [8,256], [8,640], '
                     '[16,128], [32,128], device time in a CUDA graph',
-        'ms': g['ms'], 'plain_ms': g['plain_ms'], 'bound_ms': g['bound_ms'],
-        'bound_by': 'bytes', 'library_ms': g['library_ms']}, {
+        'ms': g['ms'], 'graph_ms': g['ms'], 'plain_ms': g['plain_ms'],
+        'bound_ms': g['bound_ms'], 'bound_by': 'bytes',
+        'library_ms': g['library_ms']}, {
         'name': 'lane_gather_loop', 'route': 'cuda',
         'source': 'packnet_sfm_tpu_torch/csrc/lane_gather.cu',
         'replaces': 'scripts/bench_dynamic_gather.py:64',
         'launches': launches[1], 'max_abs_err': 0.0,
         'timed_as': 'one launch at each of S = 8 and S = 32, n = 512, '
                     'device time in a CUDA graph',
-        'ms': lp['ms'], 'plain_ms': lp['plain_ms'],
+        'ms': lp['ms'], 'graph_ms': lp['ms'], 'plain_ms': lp['plain_ms'],
         'bound_ms': lp['bound_ms'],
         'bound_by': 'bytes' if lp['bytes_ms'] > lp['ops_ms']
         else 'operations', 'library_ms': None}]

@@ -23,11 +23,15 @@ cross-formulation limits of the exact gradient at the generic step's
 
 The hand-written Hopper kernels are in
 `packnet_sfm_tpu_torch/csrc/generic_projection.cu`; they replace the Pallas
-`_proj_kernel` and `_proj_bwd_kernel`. A backward call makes two launches
-(dd pixel-major, dray ray-major; no atomics). On CPU tensors the wrappers
-run the plain versions, `generic_projection_fwd_reference` (the JAX
-package's XLA twin `_expected_xla`: the online softmax streamed over window
-rows, with the logits summed in the kernel's order) and
+`_proj_kernel` and `_proj_bwd_kernel`. A backward call is one launch
+whose blocks each take a dray tile (ray-major) or a dd tile (pixel-major);
+no atomics. The kernels stage a pixel tile's window rays in shared memory,
+which bounds the window at p <= 66 on planes wider than 2p + 9
+(`staged_bytes`); the wrappers raise beyond it, on any device. On CPU
+tensors the wrappers run the plain versions,
+`generic_projection_fwd_reference` (the JAX package's XLA twin
+`_expected_xla`: the online softmax streamed over window rows, with the
+logits summed in the kernel's order) and
 `generic_projection_bwd_reference` (the kernel's formula as tensor ops over
 the same residuals); there is no other fall back. Each wrapper counts its
 calls that reach the card in its `launches` attribute.
@@ -145,6 +149,40 @@ def _check(ray_p, d_p, p, residuals=()):
                          '{}x{} image (patch_side {}): project at a larger '
                          'resolution or with a smaller patch'.format(
                              k1, H, W, p))
+    need = max(staged_bytes(H, W, p))
+    if need > MAX_SMEM:
+        raise ValueError('the projection window 2p+1 = {} needs {} bytes of '
+                         'shared memory for the kernels\' staged rays, above '
+                         "the card's {} (patch_side {} > 66)".format(
+                             k1, need, MAX_SMEM, p))
+
+
+# the kernels' shared memory (csrc/generic_projection.cu `layout`): the rays
+# of the forward's 4x8 pixel tile's windows, (k1 + 3) x (k1 + 7) x 12
+# bytes; of dd's 4x4 tile, (k1 + 3)^2 x 12 with the row stride padded for
+# banks; 8 pixel rows of an 8-column ray tile's pixel range x 36
+MAX_SMEM = 232448
+
+
+def staged_bytes(H, W, p):
+    """(forward rays, dd rays, dray pixel band) shared memory bytes of the
+    kernels at an H x W plane and window p, as `layout` in the CUDA source
+    sizes them."""
+    k1 = 2 * p + 1
+    rh, ncols, h = min(3 + k1, H), min(3 + k1, W), (k1 + 1) // 2
+    rw = next((w for w in range(ncols, ncols + 32)
+               if 7 <= (h * w) % 32 <= 25), ncols)
+    pw = max(_phi(min(c0 + 7, W - 1), p, W) - _plo(c0, p) + 1
+             for c0 in range(0, W, 8))
+    return rh * min(7 + k1, W) * 12, rh * rw * 12, 8 * pw * 36
+
+
+def _plo(c, p):
+    return 0 if c <= 2 * p else c - p
+
+
+def _phi(c, p, n):
+    return n - 1 if c >= n - (2 * p + 1) else c + p
 
 
 def _launch_fwd(ray_p, d_p, p):
@@ -196,7 +234,7 @@ def generic_projection_fwd(ray_p, d_p, p):
 def generic_projection_bwd(ray_p, d_p, rows, cols, m, s, gy, gx, p):
     """(dray, dd) [B,3,H,W] from the forward's residuals and the cotangents
     gy, gx of rows and cols. CUDA tensors go to the Hopper kernels (one
-    call, two launches, counted once in `generic_projection_bwd.launches`);
+    call, one launch, counted in `generic_projection_bwd.launches`);
     CPU tensors to the plain version."""
     p = int(p)
     _check(ray_p, d_p, p, (rows, cols, m, s, gy, gx))

@@ -9,7 +9,9 @@ template against JAX (which runs its dense softmax at these sizes);
 RaySurfaceResNet in training and eval; the generic photometric loss; the
 whole GenericSelfSupModel loss and per-leaf gradients against
 jax.value_and_grad; the factory on both omnicam YAMLs; train.main on the
-CPU; and the raise where the window does not fit.
+CPU; the raises where the window does not fit the plane or the kernels'
+shared memory; and a numpy emulation of the CUDA kernels' tiles, lanes
+and chunks (its own note, near the end of the file).
 
 Tolerances, each with its reason:
 - the projection against the Pallas kernel and the XLA twin (the same
@@ -266,6 +268,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tgp.generic_projection_fwd(ray, d[:, :, :8], 2)
     with pytest.raises(ValueError, match='residuals'):
         tgp.generic_projection_bwd(ray, d, gy, gx, gy, gx, gy, gx[:, :8], 2)
+    # the kernels stage a pixel tile's window rays in shared memory, which
+    # holds the window up to p = 66 (staged_bytes)
+    big = torch.zeros(1, 3, 150, 150)
+    assert max(tgp.staged_bytes(150, 150, 66)) <= tgp.MAX_SMEM
+    with pytest.raises(ValueError, match='shared memory'):
+        tgp.generic_projection_fwd(big, big, 67)
+    with pytest.raises(ValueError, match='shared memory'):
+        tgp.generic_projection_bwd(big, big, *big[:, 0].repeat(6, 1, 1)
+                                   .split(1), 67)
     res = tgp.generic_projection_fwd(ray, d, 4)
     tgp.generic_projection_bwd(ray, d, *res, gy, gx, 4)
     assert before == (tgp.generic_projection_fwd.launches,
@@ -594,3 +605,323 @@ def test_train_main_generic_loss_falls_on_a_shifted_context_batch():
     assert run['trainer'].optimizer.count == 10
     assert all(b_ is sb for b_ in run['batches'])
     assert losses[-1] < 0.95 * losses[0], losses
+
+
+# ------------------------------------- the kernels' lane split, emulated
+#
+# csrc/generic_projection.cu splits the work otherwise than the plain
+# versions' loops. Forward: 4x8 pixel tiles whose windows' rays are staged
+# in shared memory, 4 lanes a pixel taking the window columns j = tc + 4u
+# (chunks of 11 slots, out-of-window slots clamped and masked), the window
+# rows in order, each row's max and sums combined over the 4 lanes by warp
+# shuffles (lane bits 0, 1) before the plain version's row recurrence. dd:
+# 4x4 pixel tiles, 8 lanes a pixel (window-row halves x the 4 column
+# phases), combined over lane bits 0, 1, 4. dray: 8x8 ray tiles, a warp's
+# two ray rows sharing each staged pixel row, the pixels staged 8 rows at
+# a time, 4 column lanes a ray combined over lane bits 3, 4. The emulation
+# below walks the same tiles, bands, lanes and chunks in numpy (float32),
+# checks that they visit each (pixel, window position) and each (ray,
+# pixel) exactly once and read the ray the window names from the staged
+# tile, and holds its fixed-order combination to the chip checks' limits
+# against the plain versions: m rtol 1e-6, s rtol 1e-5, rows and cols atol
+# 1e-5 of the plane's extent, dray and dd atol 2e-4 x max|ref|.
+
+KERNEL_CONSTANTS = {'FTX': 8, 'PTX': 4, 'PTY': 4, 'CW': 11, 'RTX': 8,
+                    'RTY': 8, 'BAND': 8}
+FTX, PTX, PTY, CW, RTX, RTY, BAND = KERNEL_CONSTANTS.values()
+
+
+def _plo(c, p):
+    return np.where(c <= 2 * p, 0, c - p)
+
+
+def _phi(c, p, n):
+    return np.where(c >= n - (2 * p + 1), n - 1, c + p)
+
+
+def _dd_row_stride(ncols, k1):
+    """dd's staged row stride: padded so that its two window-row halves
+    (h rows apart) load from distinct banks."""
+    h = (k1 + 1) // 2
+    return next((w for w in range(ncols, ncols + 32)
+                 if 7 <= (h * w) % 32 <= 25), ncols)
+
+
+def _pixel_lanes(H, W, p, txw):
+    """Every pixel's tile and staged rays, as the pixel-major kernels place
+    them on PTY x txw tiles: (the image position y * W + x of every staged
+    element [tiles, RH*RW], -1 in the padding; tile index [H, W]; window
+    offset in the staged tile [H, W]; RW)."""
+    k1 = 2 * p + 1
+    sy, sx = tgp.window_starts(H, p), tgp.window_starts(W, p)
+    RH, ncols = min(PTY - 1 + k1, H), min(txw - 1 + k1, W)
+    RW = ncols if txw == FTX else _dd_row_stride(ncols, k1)
+    ty, tx = -(-H // PTY), -(-W // txw)
+    staged = np.full((ty * tx, RH, RW), -1, np.int64)
+    ry0, rx0 = sy[::PTY], sx[::txw]
+    pos = np.arange(H * W).reshape(H, W)
+    for a in range(ty):
+        nrows = sy[min((a + 1) * PTY, H) - 1] + k1 - ry0[a]
+        for b in range(tx):
+            ncols = sx[min((b + 1) * txw, W) - 1] + k1 - rx0[b]
+            assert nrows <= RH and ncols <= RW
+            staged[a * tx + b, :nrows, :ncols] = pos[
+                ry0[a]:ry0[a] + nrows, rx0[b]:rx0[b] + ncols]
+    ys, xs = np.arange(H)[:, None], np.arange(W)[None]
+    tile_of = (ys // PTY) * tx + xs // txw
+    off = (sy[:, None] - ry0[ys // PTY]) * RW + (sx[None] - rx0[xs // txw])
+    return staged.reshape(ty * tx, -1), tile_of, off, RW
+
+
+def _chunk_slots(tc, k1):
+    """The slots of a lane's window columns tc + 4u, chunk by chunk:
+    [[(column j, column read jj, in window)] * CW]. A chunk whose first
+    CW - 1 slots the kernel takes as in the window without a test must
+    have them so."""
+    chunks = []
+    for jc in range(tc, k1, 4 * CW):
+        fast = jc + 4 * (CW - 2) < k1
+        chunk = []
+        for u in range(CW):
+            j = jc + 4 * u
+            assert j < k1 or not (fast and u < CW - 1)
+            chunk.append((j, min(j, k1 - 1), j < k1))
+        chunks.append(chunk)
+    return chunks
+
+
+def _checked_window_rays(ray, lanes, p, jj, rows):
+    """The rays the lanes read at window column jj of the window rows
+    `rows` of every pixel, [B, 3, R, H, W], after checking that the staged
+    tile's element they address holds the ray the window names."""
+    staged, tile_of, off, RW = lanes
+    H, W = ray.shape[2:]
+    sy, sx = tgp.window_starts(H, p), tgp.window_starts(W, p)
+    read = staged[tile_of[None], off[None] + rows[:, None, None] * RW + jj]
+    want = (sy[None, :, None] + rows[:, None, None]) * W + sx[None, None] + jj
+    assert np.array_equal(read, np.broadcast_to(want, read.shape))
+    return ray.reshape(*ray.shape[:2], -1)[:, :, want]
+
+
+def _butterfly(parts, masks):
+    """Sum lane partials in the kernels' shuffle order: for each mask the
+    lane adds its partner's value; every lane ends with the same sum."""
+    parts = dict(parts)
+    for mask in masks:
+        parts = {k: parts[k] + parts[k ^ mask] for k in parts}
+    return parts[0]
+
+
+def _lane_logits(ray, d, p, lanes, tc, rows):
+    """A lane's slots over the window rows `rows`: [(column j, in window,
+    logits [R, B, H, W], rays [B, 3, R, H, W])]."""
+    out = []
+    for chunk in _chunk_slots(tc, 2 * p + 1):
+        for j, jj, ok in chunk:
+            g = _checked_window_rays(ray, lanes, p, jj, rows)
+            logit = (d[:, 0, None] * g[:, 0] + d[:, 1, None] * g[:, 1]
+                     + d[:, 2, None] * g[:, 2]).transpose(1, 0, 2, 3)
+            out.append((j, ok, logit, g))
+    return out
+
+
+def emulate_forward(ray, d, p):
+    """(rows, cols, m, s) by the forward kernel's lanes and order, and the
+    visit count of every window position (every pixel's lanes walk the
+    same slots; the staged rays they read are checked pixel by pixel)."""
+    B, _, H, W = ray.shape
+    k1 = 2 * p + 1
+    f32 = np.float32
+    sy, sx = tgp.window_starts(H, p), tgp.window_starts(W, p)
+    tiles = _pixel_lanes(H, W, p, FTX)
+    lanes = {}
+    visits = np.zeros((k1, k1), np.int64)
+    for tc in range(4):
+        lanes[tc] = _lane_logits(ray, d, p, tiles, tc, np.arange(k1))
+        for j, ok, _, _ in lanes[tc]:
+            visits[:, j % k1] += ok
+    m = np.full((B, H, W), -1e30, f32)
+    s, ey, ex = (np.zeros((B, H, W), f32) for _ in range(3))
+    for i in range(k1):
+        lane_max = {tc: np.max([lg[i] if ok else np.full_like(lg[i], -1e30)
+                                for _, ok, lg, _ in v], axis=0)
+                    for tc, v in lanes.items()}
+        m_new = np.maximum(m, np.maximum(
+            np.maximum(lane_max[0], lane_max[1]),
+            np.maximum(lane_max[2], lane_max[3])))
+        alpha = np.exp(m - m_new)
+        cs, cx = {}, {}
+        for tc, lane in lanes.items():
+            cs[tc], cx[tc] = np.zeros_like(m), np.zeros_like(m)
+            for j, ok, lg, _ in lane:
+                pe = np.exp(lg[i] - m_new) if ok else np.zeros_like(m)
+                cs[tc] = cs[tc] + pe
+                cx[tc] = cx[tc] + pe * (sx[None, None] + j).astype(f32)
+        psum, pcx = _butterfly(cs, (1, 2)), _butterfly(cx, (1, 2))
+        s = s * alpha + psum
+        ey = ey * alpha + (sy[None, :, None] + i).astype(f32) * psum
+        ex = ex * alpha + pcx
+        m = m_new
+    return ey / s, ex / s, m, s, visits
+
+
+def emulate_dd(ray, d, rows, cols, m, s, gy, gx, p):
+    """dd by the dd kernel's lanes and order: 8 lanes a pixel, th * 16 +
+    tc, window rows [0, h) and [h, k1), each lane's slots row by row."""
+    B, _, H, W = ray.shape
+    k1 = 2 * p + 1
+    h = (k1 + 1) // 2
+    f32 = np.float32
+    inv_s = f32(1) / s
+    sy, sx = tgp.window_starts(H, p), tgp.window_starts(W, p)
+    tiles = _pixel_lanes(H, W, p, PTX)
+    centre = _checked_window_rays(ray, tiles, p, p, np.array([p]))[:, :, 0]
+    parts = {}
+    for th in (0, 1):
+        wrows = np.arange(h, k1) if th else np.arange(h)
+        for tc in range(4):
+            lane = _lane_logits(ray, d, p, tiles, tc, wrows)
+            gy_row = gy[None] * ((sy[None, None, :, None]
+                                  + wrows[:, None, None, None]).astype(f32)
+                                 - rows[None])                 # [R,B,H,W]
+            acc = np.zeros((B, 3, H, W), f32)
+            for j, ok, logit, g in lane:
+                if not ok:
+                    continue            # masked: glogit 0
+                pk = np.exp(logit - m[None]) * inv_s[None]
+                gl = pk * (gy_row + gx[None] * ((sx[None, None] + j)
+                                                .astype(f32) - cols[None]))
+                acc += np.einsum('rbhw,bkrhw->bkhw', gl,
+                                 g - centre[:, :, None])
+            parts[th * 16 + tc] = acc
+    return _butterfly(parts, (1, 2, 16))
+
+
+def emulate_dray(ray, d, rows, cols, m, s, gy, gx, p):
+    """dray by the kernel's tiles, bands, warps and lanes, and every (ray,
+    pixel) pair it visits, as ray index * H*W + pixel index, sorted. The
+    bands' row ranges are walked as the kernel walks them and each row of
+    a warp's range must come once; the sums then run over a tile's rows at
+    once, each lane's apart, and over the lanes in the kernel's shuffle
+    order."""
+    B, _, H, W = ray.shape
+    f32 = np.float32
+    inv_s = f32(1) / s
+    parts = np.zeros((4, B, 3, H, W), f32)        # by column lane tc
+    pairs = []
+    tc = np.arange(4)[:, None, None]
+    for r0 in range(0, H, RTY):
+        Y0, Y1 = int(_plo(r0, p)), int(_phi(min(r0 + RTY, H) - 1, p, H))
+        ys = np.arange(Y0, Y1 + 1)
+        # the tile's 8 ray rows, two a warp; a warp walks, band by band,
+        # [max(yb, ylo of its first row), min(yb + nb - 1, yhi of its
+        # second)], and a row feeds its first ray if y <= that ray's yhi,
+        # its second if y >= that ray's ylo
+        ra = r0 + np.arange(RTY)
+        rr = np.minimum(ra, H - 1)
+        ylo, yhi = _plo(rr, p), _phi(rr, p, H)
+        walked = np.zeros((RTY // 2, len(ys)), np.int64)
+        for w in range(RTY // 2):
+            for yb in range(Y0, Y1 + 1, BAND):
+                nb = min(BAND, Y1 - yb + 1)
+                walked[w, max(yb, ylo[2 * w]) - Y0:
+                       min(yb + nb - 1, yhi[2 * w + 1]) + 1 - Y0] += 1
+        assert walked.max() == 1
+        walked = np.repeat(walked, 2, axis=0).astype(bool)   # by ray row
+        fed = walked & np.where((ra % 2 == 0)[:, None],
+                                ys[None] <= yhi[:, None],
+                                ys[None] >= ylo[:, None])
+        fed &= (ra < H)[:, None]           # a row past H: not written
+        for c0 in range(0, W, RTX):
+            cw = c0 + np.arange(RTX)
+            keep = cw < W
+            c = np.minimum(cw, W - 1)
+            xlo, xhi = _plo(c, p)[None, :, None], _phi(c, p, W)[None, :, None]
+            # a lane's columns xlo + tc + 4u (its chunks of CW slots cut to
+            # the slots any lane of the tile has)
+            x = xlo + tc + 4 * np.arange(-(-int(np.max(xhi - xlo + 1))
+                                           // 4))[None, None]
+            ok = (fed[:, :, None, None, None]
+                  & ((x <= xhi) & keep[None, :, None])[None, None])
+            xx = np.minimum(x, xhi)
+            q = (ys[:, None, None, None], xx[None])
+            dq = d[:, :, q[0], q[1]]                     # [B,3,Y,4,8,U]
+            mq, sq, gyq, gxq, eyq, exq = (
+                a[:, None, q[0], q[1]] for a in (m, inv_s, gy, gx, rows,
+                                                 cols))
+            g = ray[:, :, rr[:, None], c[None]][:, :, :, None, None, :, None]
+            logit = (dq[:, 0, None] * g[:, 0] + dq[:, 1, None] * g[:, 1]
+                     + dq[:, 2, None] * g[:, 2])         # [B,8r,Y,4,8c,U]
+            pk = np.exp(logit - mq) * sq
+            gl = pk * (gyq * (rr.astype(f32)[:, None, None, None, None]
+                              - eyq)
+                       + gxq * (c.astype(f32)[:, None] - exq))
+            gl = np.where(ok[None], gl, f32(0))
+            contrib = np.einsum('brytcu,bkytcu->tbkrc', gl, dq)
+            rk = ra < H
+            parts[:, :, :, rr[rk][:, None], c[keep][None]] += \
+                contrib[:, :, :, rk][..., keep]
+            ri, yi, ti, ci, ui = np.nonzero(ok)
+            pairs.append((rr[ri] * W + c[ci]) * (H * W) + ys[yi] * W
+                         + x[ti, ci, ui])
+    dray = _butterfly({k: parts[k] for k in range(4)}, (1, 2))
+    return dray, np.sort(np.concatenate(pairs))
+
+
+def _expected_pairs(H, W, p):
+    """Every (ray, pixel) pair whose window holds the ray, sorted."""
+    k1 = 2 * p + 1
+    sy, sx = tgp.window_starts(H, p), tgp.window_starts(W, p)
+    ry = sy[:, None] + np.arange(k1)[None]                      # [H, k1]
+    rx = sx[:, None] + np.arange(k1)[None]                      # [W, k1]
+    ray_idx = ry[:, None, :, None] * W + rx[None, :, None, :]   # [H,W,k1,k1]
+    pix = (np.arange(H)[:, None] * W + np.arange(W)[None])[..., None, None]
+    return np.sort((ray_idx * (H * W) + pix).ravel())
+
+
+def _peaked(seed, B, H, W):
+    rays = _rays(seed, B, H, W)
+    d = _rays(seed + 1, B, H, W) / tcg.softmax_temperature(0.0)
+    return (np.ascontiguousarray(rays.transpose(0, 3, 1, 2)),
+            np.ascontiguousarray(d.transpose(0, 3, 1, 2)).astype(np.float32))
+
+
+def test_kernel_constants_match_the_emulation():
+    src = (build.CSRC / 'generic_projection.cu').read_text()
+    for name, value in KERNEL_CONSTANTS.items():
+        assert re.search(r'constexpr int {} = {};'.format(name, value), src), \
+            name
+
+
+@pytest.mark.parametrize('shape', [(1, 48, 48), (2, 41, 41), (1, 41, 97)])
+def test_kernel_lane_split_visits_once_and_matches_plain(shape):
+    """The kernels' tiles, lanes and chunks at p = 20, emulated: each
+    (pixel, window position) once, each (ray, pixel) of a window once and
+    nothing else, the staged rays the windows name, and the fixed-order
+    sums within the chip checks' limits of the plain versions. Rays near
+    the pinhole template with directions at the temperature of progress 0
+    (a peaked softmax); at B2 the second image has random rays and
+    directions (a flat one)."""
+    B, H, W = shape
+    p = 20
+    ray, d = _peaked(20 + H, 1, H, W)
+    if B == 2:
+        flat = _proj_inputs(21, 1, H, W)[:2]
+        ray, d = (np.concatenate([a, b]) for a, b in zip((ray, d), flat))
+    gy, gx = _proj_inputs(22, B, H, W)[2:]
+    rows, cols, m, s, visits = emulate_forward(ray, d, p)
+    assert np.all(visits == 1)
+    want = [a.numpy() for a in tgp.generic_projection_fwd_reference(
+        t(ray), t(d), p)]
+    for got, ref, ext in ((rows, want[0], H - 1), (cols, want[1], W - 1)):
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * ext)
+    np.testing.assert_allclose(m, want[2], rtol=1e-6, atol=0)
+    np.testing.assert_allclose(s, want[3], rtol=1e-5, atol=0)
+    res = [np.asarray(a) for a in want]
+    dd = emulate_dd(ray, d, *res, gy, gx, p)
+    dray, pairs = emulate_dray(ray, d, *res, gy, gx, p)
+    np.testing.assert_array_equal(pairs, _expected_pairs(H, W, p))
+    wdray, wdd = (a.numpy() for a in tgp.generic_projection_bwd_reference(
+        t(ray), t(d), *(t(a) for a in res), t(gy), t(gx), p))
+    close(dd, wdd, 2e-4)
+    close(dray, wdray, 2e-4)
