@@ -22,11 +22,12 @@ it, with nothing of JAX:
    kernel, dgrad kernel, dW/db) against plain autograd through the plain
    forward (F.conv2d's own backward), on dx, dW and db in float32 and in
    bfloat16;
-   then the self-supervised slice's kernels (phase S below): the warp at
-   the slice's own grids and sources (B8, grid 768x640, from real steps'
-   depths and poses, bf16 and float32 sources) and at edge cases (grids far
-   outside the image, exact integer coordinates, the last row and column,
-   'border', Ho != H, odd W, one channel), the photometric forward and
+   then the self-supervised slice's kernels (phase S below): the warp's
+   out-only forward and its dgrid kernel at the slice's own grids, sources
+   and cotangents (B8, grid 768x640, from real steps' depths and poses, bf16
+   and float32 sources) and at edge cases (grids far outside the image,
+   exact integer coordinates, the last row and column, 'border', Ho != H,
+   odd W, one channel; g in the image dtype), the photometric forward and
    backward at the step's own [8,3,194,642] inputs and at edge cases
    (identical images, which must give exact zeros, constant images, H and
    W not multiples of the tile), and both autograd Functions against plain
@@ -49,7 +50,8 @@ it, with nothing of JAX:
    (i) as written (bf16 photometric maps; 10 steps on one batch, the last
    loss below the first) and (ii) with float32 maps through the fused
    kernels (3 steps), the counts reset just before and read just after
-   each run: per step 2 warp launches (one per context), under (ii) 10
+   each run: per step 2 warp forward and 2 dgrid launches (one each per
+   context; no kernel writes the derivative maps A, B), under (ii) 10
    photometric forward (4 warped maps and the automask's map per context)
    and 8 backward launches (the automask maps need no gradient), and 30 /
    27 masked-conv launches; never an image cotangent through the warp;
@@ -68,7 +70,8 @@ it, with nothing of JAX:
    the target shifted by 4 px; 10 steps of (i), the last loss below the
    first; 3 of (ii)), the counts reset just before and read just after
    each run: per step 2 projection forwards, 2 backward calls (one
-   launch each, dray's and dd's tiles) and 2 warps, no masked-conv or
+   launch each, dray's and dd's tiles) and 2 warp forward and 2 dgrid
+   launches, no masked-conv or
    photometric launch; and one float32 step of (i) at progress 0.5
    through every kernel against every plain version, held to the limits
    of the train step, with the plain
@@ -103,20 +106,22 @@ it, with nothing of JAX:
    loop of calls (CUDA events, the host's issue included) and replayed in
    a CUDA graph (without it), one line per conv shape and per SAN level,
    and the dW time per step (san_conv.filter_grad); the
-   self-supervised step's ms and img/s under (i) and (ii); the warp and
-   photometric kernels over one step's launches, in a loop and in a CUDA
-   graph, beside their plain versions and their bounds; the warp's
-   yardstick for the same function, F.grid_sample with its grid gradient
-   (aten.grid_sampler_2d_backward) against the warp with
-   WarpFunction.backward's dgrid math, both in a graph (and F.grid_sample
-   out only, in a loop, as before); the generic step's ms under (i) and
+   self-supervised step's ms and img/s under (i) and (ii) and the peak
+   device memory of one step of (i); the warp and photometric kernels
+   over one step's launches, in a loop and in a CUDA graph, beside their
+   plain versions, their bounds and PyTorch's call for the same function
+   (F.grid_sample for the forward, aten.grid_sampler_2d_backward for
+   dgrid); the warp's yardstick for the whole function, F.grid_sample with
+   its grid gradient against the two kernels, both in a graph, beside the
+   function's bound (image, grid and g read once, out and dgrid written
+   once); the generic step's ms under (i) and
    (ii) and the projection kernels over one step's calls, in a loop and in
    a graph, the backward's dd and dray tiles apart in a graph, beside
    their plain versions and their bounds (bytes, fp32 operations or exps
    at the SFU rate, whichever is larger; no library call computes this
    function);
-5. (e) print the kernels line with all nine kernels, then the device line
-   last.
+5. (e) print the kernels line with all ten kernels (the warp's forward
+   and dgrid apart), then the card, then the device line last.
 
 Run with no arguments: `python3 chip_smoke.py`. Exits nonzero without a
 card. Extra output goes to chiprun_out/chip_smoke_convs.json,
@@ -519,7 +524,8 @@ def main():
     counts = {'fwd': 0, 'dgrad': 0}
     counters = {'san_fwd': san_conv.masked_conv2d,
                 'san_dgrad': san_conv.masked_conv2d_dgrad,
-                'warp': warp.bilinear_warp,
+                'warp_out': warp.warp_bilinear_out,
+                'warp_dgrid': warp.warp_bilinear_dgrid,
                 'photo_fwd': photometric.photometric_fwd,
                 'photo_bwd': photometric.photometric_bwd,
                 'proj_fwd': generic_projection.generic_projection_fwd,
@@ -785,7 +791,16 @@ def main():
     counts['dgrad'] += selfsup_launches['san_dgrad']
 
     # ---------------------------------------------------------------- G
-    generic_rows = generic_phase(card, dev, gen, reset_counts, read_counts)
+    generic_rows, generic_warps = generic_phase(card, dev, gen, reset_counts,
+                                                read_counts)
+    # the generic step's warps go through the same two kernels
+    for row in selfsup_rows:
+        key = {'warp_bilinear_out': 'warp_out',
+               'warp_bilinear_dgrid': 'warp_dgrid'}.get(row['name'])
+        if key:
+            for path, got in generic_warps.items():
+                row['launches'] += got[key]
+                row['launches_by_path'][path] = got[key]
 
     # ---------------------------------------------------------------- Q
     gather_rows = gather_phase(card, dev, gen, reset_counts, read_counts)
@@ -990,13 +1005,16 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
                                    contexts=port_train.n_contexts(config))[0]
 
     # the step's own kernel inputs: one training step of (i) and of (ii)
-    rec = {'warp_i': [], 'warp_ii': [], 'fwd': [], 'bwd': []}
+    rec = {'warp_i': [], 'warp_ii': [], 'dgrid_i': [], 'dgrid_ii': [],
+           'fwd': [], 'bwd': []}
     for name, over in (('i', None), ('ii', FP32_MAPS)):
         _, model = port_train.build(SELFSUP_CONFIG, 'cuda', seed=0,
                                     overrides=over)
         with contextlib.ExitStack() as stack:
-            stack.enter_context(recording(warp, '_launch',
+            stack.enter_context(recording(warp, '_launch_out',
                                           rec['warp_' + name]))
+            stack.enter_context(recording(warp, '_launch_dgrid',
+                                          rec['dgrid_' + name]))
             if name == 'ii':
                 stack.enter_context(recording(photometric, '_launch_fwd',
                                               rec['fwd']))
@@ -1005,35 +1023,45 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
             model(batch)['loss'].backward()
         del model
     torch.cuda.synchronize()
-    if (len(rec['warp_i']), len(rec['warp_ii']), len(rec['fwd']),
-            len(rec['bwd'])) != (WARPS_PER_STEP, WARPS_PER_STEP,
-                                 PHOTO_FWD_PER_STEP, PHOTO_BWD_PER_STEP):
-        raise AssertionError('one selfsup step launched the warp {} / {} '
-                             'times and the photometric kernels {} / {}'
-                             .format(len(rec['warp_i']), len(rec['warp_ii']),
-                                     len(rec['fwd']), len(rec['bwd'])))
+    counted = tuple(len(rec[k]) for k in ('warp_i', 'dgrid_i', 'warp_ii',
+                                          'dgrid_ii', 'fwd', 'bwd'))
+    if counted != (WARPS_PER_STEP,) * 4 + (PHOTO_FWD_PER_STEP,
+                                           PHOTO_BWD_PER_STEP):
+        raise AssertionError('one selfsup step launched the warp forward and '
+                             'dgrid kernels {} / {} (i), {} / {} (ii) times '
+                             'and the photometric kernels {} / {}'.format(
+                                 *counted))
 
-    # the warp kernel against its plain version. Same formulas in the same
-    # order, no FMA contraction: expected bit for bit; held to atol = rtol
-    # = 1e-6 (x max|ref| for the atol) so a library's rounding change in
-    # the plain side's elementwise ops would not read as a fault
+    # the warp kernels against their plain versions: out of the forward
+    # kernel against bilinear_warp_reference's (the same formulas in the
+    # same order, no FMA contraction: expected bit for bit) and dgrid of the
+    # dgrid kernel against warp_dgrid_reference (the same, up to the order
+    # of the plain version's sum over the channels), on the step's own
+    # launches with their recorded cotangents and on edge cases with a g in
+    # the image dtype; held to atol = rtol = 1e-6 (x max|ref| for the atol)
+    # so a library's rounding change in the plain side's elementwise ops
+    # would not read as a fault
     warp_err = {'float32': 0.0, 'bfloat16': 0.0}
-    exact = [0, 0]
-    cases = [(img, grid, mode, 'step ' + tag)
-             for tag in ('i', 'ii') for img, grid, mode in rec['warp_' + tag]]
+    exact = {'out': [0, 0], 'dgrid': [0, 0]}
+    cases = [(img, grid, mode, g, 'step ' + tag)
+             for tag in ('i', 'ii') for img, grid, g, mode in
+             rec['dgrid_' + tag]]
     for B, H, W, C, Ho in ((2, 37, 53, 3, 111), (1, 8, 9, 1, 8)):
         grid = edge_grid(B, Ho, W, H, W, gen)
         for dt in (torch.float32, torch.bfloat16):
             img = torch.rand(B, H, W, C, device=dev, generator=gen).to(dt)
+            g = torch.randn(B, Ho, W, C, device=dev, generator=gen).to(dt)
             for mode in ('zeros', 'border'):
-                cases.append((img, grid, mode, 'edge {}x{}->{}'.format(
+                cases.append((img, grid, mode, g, 'edge {}x{}->{}'.format(
                     H, W, Ho)))
-    for img, grid, mode, tag in cases:
-        got = warp.bilinear_warp(img, grid, mode)
+    for img, grid, mode, g, tag in cases:
+        got = (warp.warp_bilinear_out(img, grid, mode),
+               warp.warp_bilinear_dgrid(img, grid, g, mode))
         torch.cuda.synchronize()
-        want = warp.bilinear_warp_reference(img, grid, mode)
+        want = (warp.bilinear_warp_reference(img, grid, mode)[0],
+                warp.warp_dgrid_reference(img, grid, g, mode))
         key = str(img.dtype).replace('torch.', '')
-        for nm, a, b in zip(('out', 'A', 'B'), got, want):
+        for nm, a, b in zip(('out', 'dgrid'), got, want):
             if a.dtype != b.dtype or a.shape != b.shape:
                 raise AssertionError('warp {} {}: {} {} against {} {}'.format(
                     tag, nm, a.dtype, tuple(a.shape), b.dtype,
@@ -1042,12 +1070,14 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
                               a, b, 1e-6 * max(float(b.float().abs().max()),
                                                1e-30), 1e-6)
             warp_err[key] = max(warp_err[key], err)
-            exact[0] += int((a == b).sum())
-            exact[1] += a.numel()
-    log('warp kernel vs plain: {} cases x (out, A, B) ok, max |err| fp32 '
-        '{:.3e} bf16 {:.3e}, bit-equal {:.6f} of the values'.format(
-            len(cases), warp_err['float32'], warp_err['bfloat16'],
-            exact[0] / exact[1]))
+            exact[nm][0] += int((a == b).sum())
+            exact[nm][1] += a.numel()
+    bit_equal = {k: v[0] / v[1] for k, v in exact.items()}
+    log('warp kernels vs plain: {} cases x (out, dgrid) ok, max |err| fp32 '
+        '{:.3e} bf16 {:.3e}, bit-equal out {:.6f} dgrid {:.6f} of the '
+        'values'.format(len(cases), warp_err['float32'],
+                        warp_err['bfloat16'], bit_equal['out'],
+                        bit_equal['dgrid']))
 
     # the photometric kernels against their plain versions: the same
     # formulas in the same order (float32 sums of the plain side may round
@@ -1090,11 +1120,11 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
                        photo_err['fwd'], photo_err['bwd']))
 
     # the autograd Functions against plain autograd through the plain
-    # versions: dgrid (the Function's elementwise math over A and B against
-    # autograd through floor, taps and weights) and dx, dy through the
+    # versions: dgrid (the dgrid kernel against autograd through floor,
+    # taps and weights) and dx, dy through the
     # reflect fold. Float32 in another order: atol 1e-5 x max|ref|, rtol
     # 1e-4. A bf16 source: the kernels' bf16 rule (rtol 2e-2, atol 1e-2 x
-    # max|ref|), because the Function's B map rounds the tap differences
+    # max|ref|), because the dgrid kernel's B rounds the tap differences
     # p10 - p00 and p11 - p01 to bf16, as the JAX `_gs_derivs` does, while
     # autograd through the out formula differentiates bot - top formed in
     # float32: dgrid's y half differs by one bf16 rounding of a difference
@@ -1147,7 +1177,8 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
         want = dict.fromkeys(got, 0)
         want.update(san_fwd=CONVS_PER_FORWARD * n_steps,
                     san_dgrad=DGRADS_PER_STEP * n_steps,
-                    warp=WARPS_PER_STEP * n_steps,
+                    warp_out=WARPS_PER_STEP * n_steps,
+                    warp_dgrid=WARPS_PER_STEP * n_steps,
                     photo_fwd=PHOTO_FWD_PER_STEP * n_steps if fp32 else 0,
                     photo_bwd=PHOTO_BWD_PER_STEP * n_steps if fp32 else 0)
         if got != want:
@@ -1205,12 +1236,26 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
         raise AssertionError('selfsup step through the kernels disagrees '
                              'with the plain versions')
 
-    # timings: the step under (i) and (ii)
-    step_ms = {}
+    # timings: the step under (i) and (ii); the device memory of one step
+    # of (i): what was allocated before it, and its peak above that (the
+    # saved activations, the warp's among them, and the gradients)
+    step_ms, step_memory = {}, {}
     for name, (trainer, run_batch) in trainers.items():
         for _ in range(2):
             trainer.train_step(run_batch)
         torch.cuda.synchronize()
+        if name == 'i':
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            trainer.train_step(run_batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            step_memory = {'held_before_mib': held / 2 ** 20,
+                           'peak_mib': peak / 2 ** 20,
+                           'step_peak_above_held_mib': (peak - held) / 2 ** 20}
+            log('selfsup train step (i): max_memory_allocated {:.1f} MiB, '
+                '{:.1f} MiB above the {:.1f} MiB held before the step'.format(
+                    peak / 2 ** 20, (peak - held) / 2 ** 20, held / 2 ** 20))
         n_timed = 5
         t0 = time.perf_counter()
         for _ in range(n_timed):
@@ -1233,48 +1278,48 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
     def over_step_graph(fn, items):
         return graph_time_ms(lambda: [fn(*a) for a in items])
 
-    def warp_with_dgrid(img, grid, mode, g):
-        """The warp launch and WarpFunction.backward's dgrid math."""
-        _, A, Bv = warp._launch(img, grid, mode)
-        H, W = img.shape[1], img.shape[2]
-        dgx = (g * A).sum(-1) * (0.5 * (W - 1))
-        dgy = (g * Bv).sum(-1) * (0.5 * (H - 1))
-        if mode == 'border':
-            xu = (grid[..., 0] + 1.0) * 0.5 * (W - 1)
-            yu = (grid[..., 1] + 1.0) * 0.5 * (H - 1)
-            dgx = dgx * ((xu >= 0) & (xu <= W - 1)).to(dgx.dtype)
-            dgy = dgy * ((yu >= 0) & (yu <= H - 1)).to(dgy.dtype)
-        return torch.stack([dgx, dgy], dim=-1)
+    def warp_pair(img, grid, g, mode):
+        """The two warp kernels of one context: out, then dgrid."""
+        return (warp._launch_out(img, grid, mode),
+                warp._launch_dgrid(img, grid, g, mode))
 
-    def grid_sample_with_dgrid(im, grid, mode, g):
+    def grid_sample_with_dgrid(im, grid, g, mode):
         """The same function by PyTorch: F.grid_sample's out and its grid
         gradient (aten.grid_sampler_2d_backward, output_mask (False,
         True))."""
         out = F.grid_sample(im, grid, mode='bilinear', padding_mode=mode,
                             align_corners=True)
-        return out, torch.ops.aten.grid_sampler_2d_backward(
+        return out, grid_sampler_dgrid(im, grid, g, mode)
+
+    def grid_sampler_dgrid(im, grid, g, mode):
+        return torch.ops.aten.grid_sampler_2d_backward(
             g, im, grid, 0, PADDING_MODES[mode], True, [False, True])[1]
 
+    def grid_sample_out(im, grid, g, mode):
+        return F.grid_sample(im, grid, mode='bilinear', padding_mode=mode,
+                             align_corners=True)
+
     with torch.no_grad():
-        w_items = rec['warp_i']
-        w_ms = over_step(warp._launch, w_items)
-        w_graph = over_step_graph(warp._launch, w_items)
+        # the step's own launches: the forward's (image, grid, mode) and the
+        # dgrid kernel's (image, grid, g, mode), g the step's cotangent of
+        # out in the image dtype
+        w_items, d_items = rec['warp_i'], rec['dgrid_i']
+        w_ms = over_step(warp._launch_out, w_items)
+        w_graph = over_step_graph(warp._launch_out, w_items)
         w_plain = over_step(warp.bilinear_warp_reference, w_items, 5)
-        # F.grid_sample samples out only (no A, B), and takes the grid in
-        # the image's dtype: timed on a float32 copy of each source
+        d_ms = over_step(warp._launch_dgrid, d_items)
+        d_graph = over_step_graph(warp._launch_dgrid, d_items)
+        d_plain = over_step(warp.warp_dgrid_reference, d_items, 5)
+        pair_graph = over_step_graph(warp_pair, d_items)
+        # PyTorch's calls take the source in NCHW and, for the grid, the
+        # image's dtype: timed on float32 copies of each source and g
         lib_items = [(img.float().permute(0, 3, 1, 2).contiguous(), grid,
-                      mode) for img, grid, mode in w_items]
-        w_lib_out = over_step(lambda im, gr, md: F.grid_sample(
-            im, gr, mode='bilinear', padding_mode=md, align_corners=True),
-            lib_items)
-        # the same function: out and dgrid from a float32 cotangent of out
-        cots = [torch.randn(grid.shape[:3] + img.shape[3:], device=dev,
-                            generator=gen) for img, grid, _ in w_items]
-        w_dgrid_graph = over_step_graph(
-            warp_with_dgrid, [a + (g,) for a, g in zip(w_items, cots)])
-        w_lib_graph = over_step_graph(grid_sample_with_dgrid, [
-            a + (g.permute(0, 3, 1, 2).contiguous(),)
-            for a, g in zip(lib_items, cots)])
+                      g.float().permute(0, 3, 1, 2).contiguous(), mode)
+                     for img, grid, g, mode in d_items]
+        w_lib_out = over_step(grid_sample_out, lib_items)
+        w_lib_graph = over_step_graph(grid_sample_out, lib_items)
+        d_lib_graph = over_step_graph(grid_sampler_dgrid, lib_items)
+        pair_lib_graph = over_step_graph(grid_sample_with_dgrid, lib_items)
         f_items = [(xp, yp, 0.85, 1e-4, 9e-4) for xp, yp, *_ in rec['fwd']]
         f_ms = over_step(photometric._launch_fwd, f_items)
         f_graph = over_step_graph(photometric._launch_fwd, f_items)
@@ -1287,14 +1332,22 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
         b_plain = over_step(photometric.photometric_bwd_reference,
                             [a[:3] for a in b_items], 5)
 
-    def warp_bound(img, grid, _mode):
+    def warp_bound(img, grid, with_out, with_dgrid):
+        """The warp's least time at one launch: the image and the grid read
+        once, out written once (with_out), g read and dgrid written once
+        (with_dgrid); ~12 FLOPs a pixel for the coordinates, ~16 a channel
+        for the taps and weights, ~24 a channel for A, B and the sums."""
         B, H, W, C = img.shape
         n_out = grid.numel() // 2
         esize = img.element_size()
-        nbytes = grid.numel() * 4 + n_out * C * (esize + 8) + img.numel() * \
-            esize
-        # coordinates ~12 FLOPs a pixel, ~16 a channel for taps and weights
-        return bound(nbytes, n_out * (12 + 16 * C), 'float32')
+        nbytes = img.numel() * esize + grid.numel() * 4
+        flops = n_out * (12 + 16 * C)
+        if with_out:
+            nbytes += n_out * C * esize
+        if with_dgrid:
+            nbytes += n_out * C * esize + grid.numel() * 4
+            flops += n_out * 24 * C
+        return bound(nbytes, flops, 'float32')
 
     def photo_bound(xp, n_maps_moved, flops_per_px):
         """xp-sized maps moved (read or written) plus one [B,H,W] map."""
@@ -1303,7 +1356,9 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
         return bound((n_maps_moved * xp.numel() + n) * 4, n * flops_per_px,
                      'float32')
 
-    wb = [warp_bound(*a) for a in w_items]
+    wb = [warp_bound(img, grid, True, False) for img, grid, _ in w_items]
+    db = [warp_bound(img, grid, False, True) for img, grid, *_ in d_items]
+    pb = [warp_bound(img, grid, True, True) for img, grid, *_ in d_items]
     # forward: xp, yp in, photo out; ~100 FLOPs a pixel and channel
     fb = [photo_bound(a[0], 2, 300) for a in f_items]
     # backward: xp, yp, g in, dxp, dyp out; ~180 FLOPs a pixel and channel
@@ -1315,7 +1370,9 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
             else 'operations'
         return b_all, by
 
-    times = {'warp': (w_ms, w_graph, w_plain, w_lib_graph, *total(wb)),
+    times = {'warp_out': (w_ms, w_graph, w_plain, w_lib_graph, *total(wb)),
+             'warp_dgrid': (d_ms, d_graph, d_plain, d_lib_graph,
+                            *total(db)),
              'photometric_fwd': (f_ms, f_graph, f_plain, None, *total(fb)),
              'photometric_bwd': (b_ms, b_graph, b_plain, None, *total(bb))}
     for k, (ms, graph, plain, lib, b_ms_, by) in times.items():
@@ -1323,34 +1380,59 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
             'plain {:.4f}, library {}, bound {:.4f} ms ({})'.format(
                 k, ms, graph, plain, 'none' if lib is None else
                 '{:.4f} (graph)'.format(lib), b_ms_, by))
-    log('warp and its dgrid math in a graph {:.4f} ms; F.grid_sample with '
-        'its grid gradient {:.4f}; F.grid_sample out only, in a loop '
-        '{:.4f}'.format(w_dgrid_graph, w_lib_graph, w_lib_out))
+    pair_bound = total(pb)[0]
+    log('warp forward and dgrid kernels in a graph {:.4f} ms; F.grid_sample '
+        'with its grid gradient {:.4f}; the function\'s bound {:.4f}; '
+        'F.grid_sample out only, in a loop {:.4f}'.format(
+            pair_graph, pair_lib_graph, pair_bound, w_lib_out))
 
     n_launch = {k: sum(r[k] for r in launches_by_run.values())
-                for k in ('warp', 'photo_fwd', 'photo_bwd', 'san_fwd',
-                          'san_dgrad')}
+                for k in ('warp_out', 'warp_dgrid', 'photo_fwd', 'photo_bwd',
+                          'san_fwd', 'san_dgrad')}
+    timed_as = '{} launches of one B{} {}x{} selfsup step (i), bf16 source'
     rows = [{
-        'name': 'warp_bilinear', 'route': 'cuda',
+        'name': 'warp_bilinear_out', 'route': 'cuda',
         'source': 'packnet_sfm_tpu_torch/csrc/warp.cu',
         'replaces': 'packnet_sfm_tpu/ops/pallas/warp.py:92',
-        'launches': n_launch['warp'],
-        'launches_by_path': {'selfsup_i': launches_by_run['i']['warp'],
-                             'selfsup_ii': launches_by_run['ii']['warp']},
+        'launches': n_launch['warp_out'],
+        'launches_by_path': {'selfsup_i': launches_by_run['i']['warp_out'],
+                             'selfsup_ii': launches_by_run['ii']['warp_out']},
         'max_abs_err': warp_err['float32'],
         'max_abs_err_bf16': warp_err['bfloat16'],
-        'timed_as': '{} launches of one B{} {}x{} selfsup step (i), bf16 '
-                    'source'.format(len(w_items), bs, *shape),
+        'bit_equal_share': bit_equal['out'],
+        'timed_as': timed_as.format(len(w_items), bs, *shape),
         'ms': w_ms, 'graph_ms': w_graph, 'plain_ms': w_plain,
-        'bound_ms': times['warp'][4], 'bound_by': times['warp'][5],
+        'bound_ms': times['warp_out'][4], 'bound_by': times['warp_out'][5],
         'library_ms': w_lib_graph,
-        'library_call': 'F.grid_sample(bilinear, align_corners=True) and '
-                        'aten.grid_sampler_2d_backward(output_mask=(False, '
-                        'True)) on a float32 copy, in a CUDA graph, against '
-                        'the kernel with WarpFunction.backward\'s dgrid '
-                        'math (kernel_with_dgrid_graph_ms)',
-        'kernel_with_dgrid_graph_ms': w_dgrid_graph,
-        'library_out_only_ms': w_lib_out}, {
+        'library_call': 'F.grid_sample(bilinear, align_corners=True) on a '
+                        'float32 NCHW copy, in a CUDA graph',
+        'library_out_only_loop_ms': w_lib_out,
+        # the function the port computes, out and dgrid: both kernels in a
+        # graph, PyTorch's pair, and its bound (image, grid and g read
+        # once, out and dgrid written once)
+        'kernel_with_dgrid_graph_ms': pair_graph,
+        'library_pair_graph_ms': pair_lib_graph,
+        'library_pair_call': 'F.grid_sample and aten.grid_sampler_2d_backward'
+                             '(output_mask=(False, True)) on float32 copies',
+        'function_bound_ms': pair_bound}, {
+        'name': 'warp_bilinear_dgrid', 'route': 'cuda',
+        'source': 'packnet_sfm_tpu_torch/csrc/warp.cu',
+        'replaces': 'packnet_sfm_tpu/ops/image.py:356 (the grid cotangent of '
+                    'the custom VJP around packnet_sfm_tpu/ops/pallas/'
+                    'warp.py:92)',
+        'launches': n_launch['warp_dgrid'],
+        'launches_by_path': {'selfsup_i': launches_by_run['i']['warp_dgrid'],
+                             'selfsup_ii':
+                                 launches_by_run['ii']['warp_dgrid']},
+        'max_abs_err': warp_err['float32'],
+        'max_abs_err_bf16': warp_err['bfloat16'],
+        'bit_equal_share': bit_equal['dgrid'],
+        'timed_as': timed_as.format(len(d_items), bs, *shape),
+        'ms': d_ms, 'graph_ms': d_graph, 'plain_ms': d_plain,
+        'bound_ms': times['warp_dgrid'][4],
+        'bound_by': times['warp_dgrid'][5], 'library_ms': d_lib_graph,
+        'library_call': 'aten.grid_sampler_2d_backward(output_mask=(False, '
+                        'True)) on float32 copies, in a CUDA graph'}, {
         'name': 'photometric_fwd', 'route': 'cuda',
         'source': 'packnet_sfm_tpu_torch/csrc/photometric.cu',
         'replaces': 'packnet_sfm_tpu/ops/pallas/photometric.py:94',
@@ -1377,7 +1459,8 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
                'step_ms': step_ms,
                'img_per_s': {k: bs * 1e3 / v for k, v in step_ms.items()},
                'runs': runs, 'warp_max_err': warp_err,
-               'warp_bit_equal_share': exact[0] / exact[1],
+               'warp_bit_equal_share': bit_equal,
+               'step_i_memory_mib': step_memory,
                'photometric_max_err': photo_err, 'function_rel_err': fn_err,
                'fp32_step_check': {'loss_rel': loss_rel,
                                    'kernels_vs_plain': grad_check,
@@ -1593,7 +1676,8 @@ def generic_phase(card, dev, gen, reset_counts, read_counts):
         want = dict.fromkeys(got, 0)
         want.update(proj_fwd=PROJ_PER_STEP * n_steps,
                     proj_bwd=PROJ_PER_STEP * n_steps,
-                    warp=WARPS_PER_STEP * n_steps)
+                    warp_out=WARPS_PER_STEP * n_steps,
+                    warp_dgrid=WARPS_PER_STEP * n_steps)
         if got != want:
             raise AssertionError('generic path ({}) launched {}, expected {}'
                                  .format(name, got, want))
@@ -1791,7 +1875,7 @@ def generic_phase(card, dev, gen, reset_counts, read_counts):
     os.makedirs('chiprun_out', exist_ok=True)
     with open('chiprun_out/chip_smoke_generic.json', 'w') as f:
         json.dump(summary, f, indent=1)
-    return rows_out
+    return rows_out, {'generic_' + k: v for k, v in launches_by_run.items()}
 
 
 def gather_phase(card, dev, gen, reset_counts, read_counts):

@@ -19,8 +19,9 @@ traces `--iters` train steps (forward, loss, backward, clip, Adam) with
 torch.profiler and prints: the wall time per step, the device time per step
 summed over kernels, the device busy share of the window, the device time
 per step by kind of kernel (the masked-conv forward and dgrad kernels, the
-warp, photometric and generic-projection kernels, the cuDNN/CUTLASS convs,
-elementwise and reductions, max-pool, the optimizer, copies), and the
+warp forward and dgrid, photometric and generic-projection kernels, the
+cuDNN/CUTLASS convs, elementwise and reductions, max-pool, the optimizer,
+copies), the peak device memory, and the
 kernels by device time. The whole table goes to chiprun_out/profile_train.json.
 """
 
@@ -36,7 +37,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # kind of kernel by its name, the first match wins
 KINDS = (('generic projection forward kernel', ('proj_fwd_kernel',)),
          ('generic projection backward kernels', ('proj_bwd_',)),
-         ('warp kernel', ('warp_kernel',)),
+         ('warp forward kernel', ('warp_out_kernel',)),
+         ('warp dgrid kernel', ('warp_dgrid_kernel',)),
          ('photometric forward kernel', ('photometric_fwd_kernel',)),
          ('photometric backward kernel', ('photometric_bwd_kernel',)),
          # CUDA cores <T, k, dgrad>; tensor cores <k, tile, block_n,

@@ -571,7 +571,7 @@ def test_train_main_generic_on_cpu():
     p stays 20): two steps, the projection through the plain versions and
     no kernel launch counted."""
     counters = (tgp.generic_projection_fwd, tgp.generic_projection_bwd,
-                twarp.bilinear_warp)
+                twarp.warp_bilinear_out, twarp.warp_bilinear_dgrid)
     before = [f.launches for f in counters]
     run = port_train.main(CONFIGS['half'], device='cpu', n_steps=2,
                           n_batches=1, seed=0, overrides=[

@@ -8,7 +8,9 @@ smoothness) against the JAX package's.
 
 Cases: random images over more than one 48-row TPU tile with a ragged
 tail, identical images (SSIM on the clamp), and bf16 inputs on the non-kernel
-path. A channel count other than 3 raises.
+path. A channel count other than 3 raises. The backward kernel's sweep
+(its lanes, strips and row segments, emulated in numpy float32) is held
+bit-equal to the plain backward.
 
 Tolerance: values rtol 1e-5 / atol 1e-6 and gradients rtol 1e-4 / atol
 1e-5 in float32, as tests/test_pallas_photometric.py holds the Pallas
@@ -81,6 +83,120 @@ def test_backward_formula_matches_autograd_of_the_plain_forward():
                                atol=1e-6)
     np.testing.assert_allclose(uy.grad.numpy(), ty.grad.numpy(), rtol=1e-4,
                                atol=1e-6)
+
+
+# The backward kernel's sweep (csrc/photometric.cu photometric_bwd_kernel),
+# emulated in numpy float32 with a warp's 32 lanes as a vector: strips of
+# 30 q columns and 32 lanes, the rows cut into near-equal segments, each
+# staged row added into the moment sums that are open, the coefficients of
+# the closing p row, their right neighbours by shuffle (lane 31 and 30 keep
+# their own value past the warp's end), the transpose sums of the closing q
+# row. Same operations in the same order as the plain version: bit-equal.
+STRIP, LANES = 30, 32
+
+
+def _shfl_down(v, d):
+    return np.concatenate([v[..., d:], v[..., LANES - d:]], -1)
+
+
+def _sweep_bwd(xp, yp, g, n_segs, alpha=0.85, C1=1e-4, C2=9e-4):
+    f = np.float32
+    B, C, Hp, Wp = xp.shape
+    H, W = Hp - 2, Wp - 2
+    c_ssim, c_l1 = f(-0.5 * alpha / 3.0), f(1.0 - alpha)
+    C1, C2, inv9, two = f(C1), f(C2), f(1.0 / 9.0), f(2.0)
+    dxp = np.full_like(xp, np.nan)
+    dyp = np.full_like(yp, np.nan)
+    base, extra = divmod(Hp, n_segs)
+    lane = np.arange(LANES)
+    for b, seg, strip in np.ndindex(B, n_segs, -(-Wp // STRIP)):
+        q0 = seg * base + min(seg, extra)
+        q1 = q0 + base + (seg < extra)
+        X = strip * STRIP - 2 + lane
+        p_col = (X >= 0) & (X < W)
+        q_col = (lane < STRIP) & (X + 2 < Wp)
+        # loads stay in the image: columns Xc..Xc+2 and the row clamped;
+        # a clamped lane's values only reach coefficients the gate zeroes
+        Xc = np.clip(X, 0, Wp - 3)
+        jq = np.minimum(X + 2 - Xc, 2)
+        Xg = np.clip(X, 0, W - 1)
+
+        def load(t):
+            tc = min(max(t, 0), Hp - 1)
+            vx = np.stack([xp[b][:, tc][:, Xc + j] for j in range(3)], 1)
+            vy = np.stack([yp[b][:, tc][:, Xc + j] for j in range(3)], 1)
+            vg = g[b, min(max(t - 2, 0), H - 1), Xg]
+            return vx, vy, np.where(p_col & (0 <= t - 2 < H), vg, f(0.0))
+
+        a, bb = np.zeros((C, 5, LANES), f), np.zeros((C, 5, LANES), f)
+        ka, kb = np.zeros((C, 4, LANES), f), np.zeros((C, 4, LANES), f)
+        xq, yq = np.zeros((C, 2, LANES), f), np.zeros((C, 2, LANES), f)
+        l1_next = np.zeros(LANES, f)
+        for t in range(q0 - 2, q1 + 2):
+            cx, cy, cg = load(t)
+            r = t - 2
+            p_ok = p_col & (0 <= r < H)
+            Gc = cg * c_ssim
+            l1_q, l1_next = l1_next, _shfl_down(cg * c_l1 / f(3.0), 1)
+            for c in range(C):
+                x, y = cx[c], cy[c]
+                v = np.stack([x, y, x * x, y * y, x * y])
+                m = (((bb[c] + v[:, 0]) + v[:, 1]) + v[:, 2]) * inv9
+                bb[c] = ((a[c] + v[:, 0]) + v[:, 1]) + v[:, 2]
+                a[c] = (v[:, 0] + v[:, 1]) + v[:, 2]
+                xr, yr = xq[c, 1].copy(), yq[c, 1].copy()
+                xq[c, 1], yq[c, 1] = xq[c, 0], yq[c, 0]
+                xq[c, 0] = np.choose(jq, x)
+                yq[c, 0] = np.choose(jq, y)
+                if t < q0:
+                    continue
+                m1, m2, m3, m4, m5 = m
+                sxy2 = two * (m5 - m1 * m2) + C2
+                n1 = two * m1 * m2 + C1
+                d1 = m1 * m1 + m2 * m2 + C1
+                d2 = (m3 - m1 * m1) + (m4 - m2 * m2) + C2
+                N, D = n1 * sxy2, d1 * d2
+                lin = (f(1.0) - N / D) * f(0.5)
+                inv_D = f(1.0) / D
+                NDD = N * inv_D * inv_D
+                S1 = (two * m2 * (sxy2 - n1)) * inv_D - NDD * (
+                    two * m1 * (d2 - d1))
+                S2 = (two * m1 * (sxy2 - n1)) * inv_D - NDD * (
+                    two * m2 * (d2 - d1))
+                S3 = -NDD * d1
+                S5 = two * n1 * inv_D
+                gc = np.where(p_ok & (lin > 0) & (lin < 1), Gc, f(0.0))
+                k = np.stack([gc * S1, gc * S2, gc * S3, gc * S5])
+                kv = [k, _shfl_down(k, 1), _shfl_down(k, 2)]
+                bs = (((kb[c] + kv[0]) + kv[1]) + kv[2]) * inv9
+                kb[c] = ((ka[c] + kv[0]) + kv[1]) + kv[2]
+                ka[c] = (kv[0] + kv[1]) + kv[2]
+                if t < q0 + 2:
+                    continue
+                d = xr - yr
+                sgn = ((d > 0).astype(f) - (d < 0).astype(f)) * l1_q
+                out = X[q_col] + 2
+                dxp[b, c, r, out] = ((bs[0] + two * xr * bs[2] + yr * bs[3])
+                                     + sgn)[q_col]
+                dyp[b, c, r, out] = ((bs[1] + two * yr * bs[2] + xr * bs[3])
+                                     - sgn)[q_col]
+    return dxp, dyp
+
+
+@pytest.mark.parametrize('B,H,W,n_segs', [(2, 13, 45, 1), (2, 13, 45, 3),
+                                          (1, 20, 61, 5), (1, 6, 9, 2)])
+def test_backward_kernel_sweep_is_the_plain_backward(B, H, W, n_segs):
+    """Every padded pixel is written once, bit-equal to the plain version
+    (photometric_bwd_reference, which the Pallas kernel's interpret-mode
+    gradient holds above), for one and several row segments, two strips
+    with a ragged last one, and a strip narrower than a warp."""
+    x, y, g = _pair(B * H + W, B, H, W)
+    xp, yp = (tphoto._padded(t(v)).numpy() for v in (x, y))
+    got = _sweep_bwd(xp, yp, g[..., 0], n_segs)
+    assert not np.isnan(got[0]).any() and not np.isnan(got[1]).any()
+    want = tphoto.photometric_bwd_reference(t(xp), t(yp), t(g[..., 0]))
+    for a, w in zip(got, want):
+        np.testing.assert_array_equal(a, w.numpy())
 
 
 def test_wrappers_refuse_what_they_do_not_take():

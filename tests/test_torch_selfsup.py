@@ -162,7 +162,7 @@ def test_loss_counts_one_warp_per_context_and_one_automask_map():
     (chip_smoke.py asserts the counts of the kernels on the card.)"""
     image, ctx, sig, vec, K = _loss_inputs(4, False)
     calls = {'warp': 0, 'photo': 0}
-    saved = (twarp.bilinear_warp, tphoto.photometric_fwd)
+    saved = (twarp.warp_bilinear_out, tphoto.photometric_fwd)
 
     def count(key, fn):
         def wrapped(*a, **k):
@@ -170,14 +170,14 @@ def test_loss_counts_one_warp_per_context_and_one_automask_map():
             return fn(*a, **k)
         return wrapped
 
-    twarp.bilinear_warp = count('warp', saved[0])
+    twarp.warp_bilinear_out = count('warp', saved[0])
     tphoto.photometric_fwd = count('photo', saved[1])
     try:
         TL(automask_loss=True, use_pallas=True)(
             t(image), [t(c) for c in ctx], [t(s) for s in sig],
             [TPose.from_vec(t(vec[:, i])) for i in range(2)], K=t(K))
     finally:
-        twarp.bilinear_warp, tphoto.photometric_fwd = saved
+        twarp.warp_bilinear_out, tphoto.photometric_fwd = saved
     assert calls == {'warp': 2, 'photo': 10}
 
 
@@ -326,7 +326,9 @@ def test_bf16_conv_filter_gradient_is_deterministic_on_cpu():
 def test_train_main_selfsup_on_cpu():
     """Both chip paths at a tiny size: bf16 maps, and float32 maps through
     the kernels' Function; the wrappers count no launch on the CPU."""
-    before = (twarp.bilinear_warp.launches, tphoto.photometric_fwd.launches,
+    before = (twarp.warp_bilinear_out.launches,
+              twarp.warp_bilinear_dgrid.launches,
+              tphoto.photometric_fwd.launches,
               tphoto.photometric_bwd.launches)
     for extra in ([], ['tpu.photometric_dtype', 'float32',
                        'tpu.use_pallas', True]):
@@ -340,6 +342,7 @@ def test_train_main_selfsup_on_cpu():
         assert len(b['rgb_context']) == 2 and b['intrinsics'].shape == (
             2, 3, 3)
         assert float(b['intrinsics'][0, 0, 2]) == 32.0
-    assert before == (twarp.bilinear_warp.launches,
+    assert before == (twarp.warp_bilinear_out.launches,
+                      twarp.warp_bilinear_dgrid.launches,
                       tphoto.photometric_fwd.launches,
                       tphoto.photometric_bwd.launches)

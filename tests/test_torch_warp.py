@@ -1,8 +1,10 @@
 """The PyTorch port's bilinear warp (packnet_sfm_tpu_torch/ops/kernels/
-warp.py, the plain version the wrapper runs on CPU tensors) and its
-autograd Function against the JAX package's grid_sample on the CPU, where
-it takes the XLA path (ops/image.py `_gs_patches`, `_gs_derivs`, the custom
-VJP), and against the Pallas warp kernel's taps in interpret mode.
+warp.py: the plain versions the wrappers run on CPU tensors, out, A and B
+from `bilinear_warp_reference` and the grid cotangent from
+`warp_dgrid_reference`) and its autograd Function against the JAX
+package's grid_sample on the CPU, where it takes the XLA path
+(ops/image.py `_gs_patches`, `_gs_derivs`, the custom VJP), and against the
+Pallas warp kernel's taps in interpret mode.
 
 Grids mix smooth in-image flow with the cases a naive port gets wrong:
 coordinates far outside the image (|x| up to 1e7, as a depth clipped at
@@ -79,8 +81,9 @@ def test_warp_and_dgrid_match_jax(mode, dtype):
     want_dgrid, = vjp(jnp.asarray(g).astype(jdt))
 
     timg = t(img).to(getattr(torch, dtype))
-    got = warp.bilinear_warp(timg, t(grid), mode)
+    got = warp.bilinear_warp_reference(timg, t(grid), mode)
     assert got[0].dtype == timg.dtype and got[1].dtype == torch.float32
+    assert torch.equal(warp.warp_bilinear_out(timg, t(grid), mode), got[0])
     if dtype == 'float32':
         close(got[0], want[0])
     else:
@@ -106,7 +109,7 @@ def test_integer_coordinates_sample_the_pixel():
     grid = np.stack([2.0 * xs / (W - 1) - 1, 2.0 * ys / (H - 1) - 1],
                     -1)[None].astype(np.float32)
     for mode in ('zeros', 'border'):
-        out = warp.bilinear_warp(t(img), t(grid), mode)[0]
+        out = warp.warp_bilinear_out(t(img), t(grid), mode)
         np.testing.assert_allclose(out.numpy(), img, rtol=0, atol=1e-6)
 
 
@@ -128,7 +131,7 @@ def test_taps_match_pallas_kernel_interpret():
     assert not bool(viol)
     want_out = jimage._gs_combine(p00, p01, p10, p11, wx, wy)
     want_A, want_B = jimage._gs_derivs(p00, p01, p10, p11, wx, wy)
-    got = warp.bilinear_warp(t(img), t(grid), 'zeros')
+    got = warp.bilinear_warp_reference(t(img), t(grid), 'zeros')
     close(got[0], want_out)
     close(got[1], want_A)
     close(got[2], want_B)
@@ -153,16 +156,71 @@ def test_image_cotangent_through_the_plain_version():
 def test_wrapper_refuses_what_it_does_not_take():
     img, grid = torch.rand(1, 4, 5, 3), torch.rand(1, 4, 5, 2)
     with pytest.raises(ValueError, match='channels'):
-        warp.bilinear_warp(torch.rand(1, 4, 5, 4), grid)
+        warp.warp_bilinear_out(torch.rand(1, 4, 5, 4), grid)
     with pytest.raises(ValueError, match='padding'):
-        warp.bilinear_warp(img, grid, 'reflection')
+        warp.warp_bilinear_out(img, grid, 'reflection')
     with pytest.raises(ValueError, match='grid'):
-        warp.bilinear_warp(img, grid[..., :1])
-    before = warp.bilinear_warp.launches
+        warp.warp_bilinear_out(img, grid[..., :1])
+    with pytest.raises(ValueError, match='g must be'):
+        warp.warp_bilinear_dgrid(img, grid, torch.rand(1, 4, 5, 2))
+    before = (warp.warp_bilinear_out.launches,
+              warp.warp_bilinear_dgrid.launches)
     # the kernel path refuses CPU tensors rather than computing anything,
     # and only a CPU tensor takes the plain version
     with pytest.raises(ValueError, match='CUDA'):
-        warp._launch(img, grid, 'zeros')
+        warp._launch_out(img, grid, 'zeros')
     with pytest.raises(ValueError, match='CUDA'):
-        warp.bilinear_warp(img.to('meta'), grid.to('meta'))
-    assert warp.bilinear_warp.launches == before
+        warp._launch_dgrid(img, grid, img, 'zeros')
+    with pytest.raises(ValueError, match='CUDA'):
+        warp.warp_bilinear_out(img.to('meta'), grid.to('meta'))
+    with pytest.raises(ValueError, match='CUDA'):
+        warp.warp_bilinear_dgrid(img.to('meta'), grid.to('meta'),
+                                 img.to('meta'))
+    assert (warp.warp_bilinear_out.launches,
+            warp.warp_bilinear_dgrid.launches) == before
+
+
+@pytest.mark.parametrize('mode', ['zeros', 'border'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('B,H,W,Ho', [(2, 9, 13, 27), (1, 7, 10, 7)])
+def test_dgrid_reference_matches_jax_grid_cotangent(mode, dtype, B, H, W,
+                                                    Ho):
+    """warp_dgrid_reference (the dgrid kernel's plain version) against
+    jax.vjp of the JAX grid_sample w.r.t. the grid (XLA path), on the
+    seeded grids of the cases above (far out, integer, last row and column;
+    Ho = 3 H with an odd W, and Ho = H); g in the image dtype, as autograd
+    hands it over."""
+    rng = np.random.RandomState(7 + H)
+    img = rng.rand(B, H, W, 3).astype(np.float32)
+    grid = _grid(8 + W, B, Ho, W, H, W)
+    g = rng.randn(B, Ho, W, 3).astype(np.float32)
+    jdt = jnp.float32 if dtype == 'float32' else jnp.bfloat16
+    jimg = jnp.asarray(img).astype(jdt)
+    _, vjp = jax.vjp(lambda gr: jimage.grid_sample(jimg, gr, mode), grid)
+    want, = vjp(jnp.asarray(g).astype(jdt))
+    tdt = getattr(torch, dtype)
+    got = warp.warp_dgrid_reference(t(img).to(tdt), t(grid),
+                                    t(g).to(tdt), mode)
+    assert got.dtype == torch.float32 and got.shape == (B, Ho, W, 2)
+    close(got, want)
+    assert torch.equal(warp.warp_bilinear_dgrid(
+        t(img).to(tdt), t(grid), t(g).to(tdt), mode), got)
+
+
+@pytest.mark.parametrize('mode', ['zeros', 'border'])
+def test_function_saves_image_and_grid_only(mode):
+    """WarpFunction keeps (image, grid) for its backward, no derivative
+    map; its CPU backward is the plain dgrid."""
+    B, H, W = 2, 6, 9
+    rng = np.random.RandomState(11)
+    img = t(rng.rand(B, H, W, 3).astype(np.float32))
+    grid = t(_grid(12, B, 2 * H, W, H, W)).requires_grad_(True)
+    g = t(rng.randn(B, 2 * H, W, 3).astype(np.float32))
+    out = grid_sample(img, grid, mode)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 2
+    assert saved[0].data_ptr() == img.data_ptr() and \
+        saved[1].data_ptr() == grid.data_ptr()
+    out.backward(g)
+    assert torch.equal(grid.grad,
+                       warp.warp_dgrid_reference(img, grid.detach(), g, mode))
