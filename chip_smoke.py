@@ -28,11 +28,14 @@ it, with nothing of JAX:
    and float32 sources) and at edge cases (grids far outside the image,
    exact integer coordinates, the last row and column, 'border', Ho != H,
    odd W, one channel; g in the image dtype), the photometric forward and
-   backward at the step's own [8,3,194,642] inputs and at edge cases
-   (identical images, which must give exact zeros, constant images, H and
-   W not multiples of the tile), and both autograd Functions against plain
-   autograd through the plain versions (dgrid; dx, dy through the reflect
-   fold);
+   backward against their plain compositions (reflect pad, formula, reflect
+   fold) at the step's own NHWC [8,192,640,3] inputs (row-slices of the
+   warp's output, the strided cotangent, dy only where asked) and at edge
+   cases (identical images, which must give exact zeros, constant images,
+   strided row-slices with a stride-0 g, H = W = 2, widths 59 and 60 whose
+   W-1 and W+1 a strip cut at multiples of 30 would separate, without dy),
+   and both autograd Functions against plain autograd through the plain
+   versions (dgrid; dx, dy through F.pad's gradient);
 3. run the eval path: eval.main on configs/train_resnet_san_ncdb_640x384.yaml
    (ResNet18-SAN, FiLM at scale 0, bf16 convs) with flip-TTA, with the
    launch counts reset just before and read just after (30 forward
@@ -54,7 +57,8 @@ it, with nothing of JAX:
    context; no kernel writes the derivative maps A, B), under (ii) 10
    photometric forward (4 warped maps and the automask's map per context)
    and 8 backward launches (the automask maps need no gradient), and 30 /
-   27 masked-conv launches; never an image cotangent through the warp;
+   27 masked-conv launches; never an image cotangent through the warp; one
+   (ii) step under torch.profiler runs no reflection_pad2d kernel;
    and one float32 step through every kernel against plain autograd
    through every plain version, with the reversed batch as the control;
    then the generic-camera path (phase G): the projection forward kernel
@@ -84,7 +88,9 @@ it, with nothing of JAX:
    come from CUDA graphs of raw launches, which the counts do not see), and
    both kernels against their plain versions at its five semantic shapes,
    the two throughput shapes and the loop at S 8, 16, 32 and n 0, 1, 5, 16,
-   512, bit-equal;
+   512, bit-equal; beside their bounds, their practical floor: an empty
+   kernel's time in a CUDA graph a launch, or the loop's dependent chain of
+   n adds if longer;
    then the eval and inference CLIs (phase C): an NCDB-layout tree of 8
    frames at 384x640 written with the port's own writers (RGB, and 16-bit
    depth on LiDAR-like beam rows), the seeded bf16 model saved with
@@ -955,6 +961,26 @@ def main():
     return 0
 
 
+def profile_step_kernels(trainer, batch):
+    """{kernel name: launches} of one train step under torch.profiler,
+    after a step of warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        total = getattr(evt, 'device_time_total', None)
+        if total is None:
+            total = getattr(evt, 'cuda_time_total', 0.0)
+        if total:
+            out[evt.key] = out.get(evt.key, 0) + evt.count
+    return out
+
+
 def reversed_batch(batch):
     """The batch's images in reverse order (lists of frames too)."""
     return {k: [c.flip(0) for c in v] if isinstance(v, list) else v.flip(0)
@@ -1079,45 +1105,75 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
                         warp_err['bfloat16'], bit_equal['out'],
                         bit_equal['dgrid']))
 
-    # the photometric kernels against their plain versions: the same
-    # formulas in the same order (float32 sums of the plain side may round
-    # differently): forward atol = rtol = 1e-6; backward atol 1e-6 x
-    # max|ref|, rtol 1e-5. Identical images must give exact zeros both ways
-    pcases = [(xp, yp, g) for (xp, yp, g, *_) in rec['bwd']]
-    pcases += [(xp, yp, None) for (xp, yp, *_) in rec['fwd']]
-    small = torch.rand(2, 3, 15, 47, device=dev, generator=gen)
-    pcases += [(small, torch.rand_like(small), torch.rand(
-        2, 13, 45, device=dev, generator=gen)),
-        (torch.full_like(small, 0.3), torch.full_like(small, 0.7),
-         torch.rand(2, 13, 45, device=dev, generator=gen))]
+    # the photometric kernels against their plain compositions (the
+    # reflect pad, the formulas, the reflect fold, the permutes; the same
+    # formulas in the same order, but float32 sums of the plain side may
+    # round differently): forward atol = rtol = 1e-6; backward atol 1e-6 x
+    # max|ref|, rtol 1e-5. On the step's own NHWC inputs (row-slices of the
+    # warp's output, the target image, the strided cotangent; dy as the
+    # step asks for it) and on edge cases: random and constant images, x
+    # and y strided row-slices of one tensor with a stride-0 g, H = W = 2,
+    # and widths 59 and 60, where strips cut at multiples of 30 columns
+    # would separate W-1 from W+1 (the kernel starts its strips elsewhere).
+    # Identical images must give exact zeros both ways
+    pcases = [(x, y, g, need_dy) for (x, y, g, need_dy, *_) in rec['bwd']]
+    pcases += [(x, y, None, False) for (x, y, *_) in rec['fwd']]
+
+    def rand_case(B, H, W, need_dy, make=torch.rand):
+        x = make(B, H, W, 3, device=dev, generator=gen)
+        y = make(B, H, W, 3, device=dev, generator=gen)
+        return (x, y, torch.rand(B, H, W, device=dev, generator=gen),
+                need_dy)
+
+    def const(*shape, device, generator):
+        return torch.full(shape, float(torch.rand(
+            (), device=device, generator=generator)), device=device)
+
+    big = torch.rand(2, 4 * 13, 47, 3, device=dev, generator=gen)
+    pcases += [rand_case(2, 13, 45, True), rand_case(2, 13, 45, False),
+               rand_case(2, 13, 45, True, const),
+               (big[:, 13:26], big[:, 39:], torch.full(
+                   (1, 1, 1), 0.3, device=dev).expand(2, 13, 47), True),
+               rand_case(1, 2, 2, True), rand_case(3, 9, 59, True),
+               rand_case(1, 7, 60, True)]
     photo_err = {'fwd': 0.0, 'bwd': 0.0}
-    for xp, yp, g in pcases:
-        got = photometric.photometric_fwd(xp, yp)
+    for x, y, g, need_dy in pcases:
+        tag = '{} strides {}'.format(tuple(x.shape), x.stride())
+        got = photometric.photometric_fwd(x, y)
         torch.cuda.synchronize()
-        want = photometric.photometric_fwd_reference(xp, yp)
+        want = photometric.photometric_fwd_plain(x, y)
         photo_err['fwd'] = max(photo_err['fwd'], check_close(
-            'photometric fwd {}'.format(tuple(xp.shape)), got, want, 1e-6,
-            1e-6))
+            'photometric fwd ' + tag, got, want, 1e-6, 1e-6))
         if g is None:
             continue
-        got = photometric.photometric_bwd(xp, yp, g)
+        got = photometric.photometric_bwd(x, y, g, need_dy)
         torch.cuda.synchronize()
-        want = photometric.photometric_bwd_reference(xp, yp, g)
-        for a, b in zip(got, want):
+        want = photometric.photometric_bwd_plain(x, y, g, need_dy)
+        if (got[1] is None) != (not need_dy):
+            raise AssertionError('photometric bwd {}: dy {} with need_dy {}'
+                                 .format(tag, got[1] is not None, need_dy))
+        for nm, a, b in zip(('dx', 'dy'), got, want):
+            if b is None:
+                continue
+            if a.shape != b.shape:
+                raise AssertionError('photometric bwd {} {}: {} against {}'
+                                     .format(tag, nm, tuple(a.shape),
+                                             tuple(b.shape)))
             photo_err['bwd'] = max(photo_err['bwd'], check_close(
-                'photometric bwd {}'.format(tuple(xp.shape)), a, b,
+                'photometric bwd {} {}'.format(tag, nm), a, b,
                 1e-6 * float(b.abs().max()), 1e-5))
-    xp, _, g = pcases[0]
-    same = [photometric.photometric_fwd(xp, xp),
-            *photometric.photometric_bwd(xp, xp, g)]
+    n_bwd = sum(c[2] is not None for c in pcases)
+    x, _, g, _ = pcases[0]
+    same = [photometric.photometric_fwd(x, x),
+            *photometric.photometric_bwd(x, x, g, True)]
     torch.cuda.synchronize()
     if any(bool(v.any()) for v in same):
         raise AssertionError('photometric kernels: identical images must '
                              'give exact zeros')
     log('photometric kernels vs plain: {} forward and {} backward cases ok, '
         'max |err| fwd {:.3e} bwd {:.3e}; identical images give exact '
-        'zeros'.format(len(pcases), len(pcases) - len(rec['fwd']),
-                       photo_err['fwd'], photo_err['bwd']))
+        'zeros'.format(len(pcases), n_bwd, photo_err['fwd'],
+                       photo_err['bwd']))
 
     # the autograd Functions against plain autograd through the plain
     # versions: dgrid (the dgrid kernel against autograd through floor,
@@ -1144,21 +1200,28 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
         else:
             err = check_kernel(key, grads[0], grads[1], img.dtype)
         fn_err[key] = err / float(grads[1].abs().max())
-    xp, yp = rec['fwd'][0][:2]
-    x = xp[:, :, 1:-1, 1:-1].permute(0, 2, 3, 1).contiguous()
-    y = yp[:, :, 1:-1, 1:-1].permute(0, 2, 3, 1).contiguous()
+    # the photometric map on the step's NHWC images, and on the same
+    # images held as NCHW tensors seen through a permute (as a resize may
+    # leave them), which photometric_map_fn copies to the kernels' layout
+    x, y = rec['fwd'][0][:2]
     gout = torch.rand(x.shape[:3] + (1,), device=dev, generator=gen)
-    grads = []
-    for fn in (photometric.photometric_map_fn,
-               photometric.photometric_map_reference):
-        leaves = [x.clone().requires_grad_(True),
-                  y.clone().requires_grad_(True)]
-        fn(*leaves).backward(gout)
-        grads.append([t.grad for t in leaves])
-    for nm, a, b in zip(('dx', 'dy'), *grads):
-        key = 'photometric ' + nm
-        fn_err[key] = check_close(key, a, b, 1e-5 * float(b.abs().max()),
-                                  1e-4) / float(b.abs().max())
+    for layout in ('NHWC', 'NCHW view'):
+        grads = []
+        for fn in (photometric.photometric_map_fn,
+                   photometric.photometric_map_reference):
+            if layout == 'NHWC':
+                leaves = [v.clone().requires_grad_(True) for v in (x, y)]
+                args = leaves
+            else:
+                leaves = [v.permute(0, 3, 1, 2).contiguous()
+                          .requires_grad_(True) for v in (x, y)]
+                args = [v.permute(0, 2, 3, 1) for v in leaves]
+            fn(*args).backward(gout)
+            grads.append([t.grad for t in leaves])
+        for nm, a, b in zip(('dx', 'dy'), *grads):
+            key = 'photometric {} {}'.format(layout, nm)
+            fn_err[key] = check_close(key, a, b, 1e-5 * float(
+                b.abs().max()), 1e-4) / float(b.abs().max())
     torch.cuda.synchronize()
     log('autograd Functions vs plain autograd, max |err| / max|ref|: ' +
         ', '.join('{} {:.3e}'.format(k, v) for k, v in fn_err.items()))
@@ -1204,22 +1267,50 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
         raise AssertionError('the selfsup path computed an image cotangent '
                              'through the warp')
 
+    # one (ii) step under torch.profiler: the reflect pad and its gradient
+    # run inside the photometric kernels, so no reflection_pad2d kernel may
+    # run (the profile must see the step's photometric launches)
+    step_kernels = profile_step_kernels(*trainers['ii'])
+    pads = {k: v for k, v in step_kernels.items() if 'reflection_pad' in k}
+    seen = tuple(sum(v for k, v in step_kernels.items() if name in k)
+                 for name in ('photometric_fwd_kernel',
+                              'photometric_bwd_kernel'))
+    if pads or seen != (PHOTO_FWD_PER_STEP, PHOTO_BWD_PER_STEP):
+        raise AssertionError('profiled selfsup (ii) step: reflect-pad '
+                             'kernels {}, photometric kernels {}'.format(
+                                 pads, seen))
+    ii_kernels = sum(step_kernels.values())
+    log('selfsup (ii) step under torch.profiler: {} device launches, no '
+        'reflection_pad2d kernel, photometric kernels {} / {}'.format(
+            ii_kernels, *seen))
+
     # one float32 step through every kernel, through every plain version
     # under plain autograd, and (the control) plain on the reversed batch
-    _, fmodel = port_train.build(SELFSUP_CONFIG, 'cuda', seed=0, overrides=[
-        'tpu.compute_dtype', 'float32'] + FP32_MAPS)
-    step_grads = []
-    for plain, b in ((False, batch), (True, batch),
-                     (True, reversed_batch(batch))):
-        fmodel.zero_grad(set_to_none=True)
-        with plain_versions() if plain else contextlib.nullcontext():
-            out = fmodel(b)
-            out['loss'].backward()
-        step_grads.append((float(out['loss'].detach()),
-                           {n: p.grad.detach().clone()
-                            for n, p in fmodel.named_parameters()}))
-        del out
-    del fmodel
+    def fp32_steps(extra, runs):
+        """(loss, gradients by leaf) of one float32 (ii) step a run of
+        `runs` ((plain, batch) each), and the photometric kernels'
+        launches over them."""
+        _, fmodel = port_train.build(SELFSUP_CONFIG, 'cuda', seed=0,
+                                     overrides=['tpu.compute_dtype',
+                                                'float32'] + FP32_MAPS +
+                                     extra)
+        res = []
+        kernels = (photometric.photometric_fwd, photometric.photometric_bwd)
+        before = [k.launches for k in kernels]
+        for plain, b in runs:
+            fmodel.zero_grad(set_to_none=True)
+            with plain_versions() if plain else contextlib.nullcontext():
+                out = fmodel(b)
+                out['loss'].backward()
+            res.append((float(out['loss'].detach()),
+                        {n: p.grad.detach().clone()
+                         for n, p in fmodel.named_parameters()}))
+            del out
+        torch.cuda.synchronize()
+        return res, [k.launches - n for k, n in zip(kernels, before)]
+
+    step_grads, _ = fp32_steps([], ((False, batch), (True, batch),
+                                    (True, reversed_batch(batch))))
     (loss_k, gk), (loss_p, gp), (_, gr) = step_grads
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     grad_check = compare_grads(gk, gp)
@@ -1235,6 +1326,29 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
             norm > TRAIN_GRAD_NORM or zero_leaf > 1e-6:
         raise AssertionError('selfsup step through the kernels disagrees '
                              'with the plain versions')
+
+    # the loss's per-scale path (upsample_depth_maps off) under (ii): a
+    # warp a scale, and the lower scales' targets resized by ops/image.py
+    # interpolate, which photometric_map_fn hands to the kernels in their
+    # layout (a copy only where the resize left NCHW memory). One float32
+    # step through the kernels against the plain versions, at the limits
+    # above
+    ((ps_k, ps_gk), (ps_p, ps_gp)), ps_launches = fp32_steps(
+        ['model.loss.upsample_depth_maps', False],
+        ((False, batch), (True, batch)))
+    ps_rel = abs(ps_k - ps_p) / abs(ps_p)
+    ps_check = compare_grads(ps_gk, ps_gp)
+    log('selfsup step fp32 per scale, kernels vs plain: loss {:.6f} vs '
+        '{:.6f} (rel {:.2e}); per gradient leaf max|err|/max|g| {:.3e} (at '
+        '{}), |err|/|g| {:.3e}; zero leaves {:.2e}; photometric launches '
+        '{} / {}'.format(ps_k, ps_p, ps_rel, *ps_check,
+                         *ps_launches))
+    if ps_rel > TRAIN_LOSS_RTOL or ps_check[0] > TRAIN_GRAD_REL or \
+            ps_check[2] > TRAIN_GRAD_NORM or ps_check[3] > 1e-6 or \
+            not all(ps_launches):
+        raise AssertionError('selfsup per-scale step through the kernels '
+                             'disagrees with the plain versions or skipped '
+                             'the photometric kernels')
 
     # timings: the step under (i) and (ii); the device memory of one step
     # of (i): what was allocated before it, and its peak above that (the
@@ -1320,17 +1434,17 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
         w_lib_graph = over_step_graph(grid_sample_out, lib_items)
         d_lib_graph = over_step_graph(grid_sampler_dgrid, lib_items)
         pair_lib_graph = over_step_graph(grid_sample_with_dgrid, lib_items)
-        f_items = [(xp, yp, 0.85, 1e-4, 9e-4) for xp, yp, *_ in rec['fwd']]
+        # the step's own calls: (x, y, alpha, C1, C2) forward and (x, y,
+        # g, need_dy, alpha, C1, C2) backward, NHWC as the loss holds them
+        f_items, b_items = rec['fwd'], rec['bwd']
         f_ms = over_step(photometric._launch_fwd, f_items)
         f_graph = over_step_graph(photometric._launch_fwd, f_items)
-        f_plain = over_step(photometric.photometric_fwd_reference,
+        f_plain = over_step(photometric.photometric_fwd_plain,
                             [a[:2] for a in f_items], 5)
-        b_items = [(xp, yp, g, 0.85, 1e-4, 9e-4)
-                   for xp, yp, g, *_ in rec['bwd']]
         b_ms = over_step(photometric._launch_bwd, b_items)
         b_graph = over_step_graph(photometric._launch_bwd, b_items)
-        b_plain = over_step(photometric.photometric_bwd_reference,
-                            [a[:3] for a in b_items], 5)
+        b_plain = over_step(photometric.photometric_bwd_plain,
+                            [a[:4] for a in b_items], 5)
 
     def warp_bound(img, grid, with_out, with_dgrid):
         """The warp's least time at one launch: the image and the grid read
@@ -1349,20 +1463,22 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
             flops += n_out * 24 * C
         return bound(nbytes, flops, 'float32')
 
-    def photo_bound(xp, n_maps_moved, flops_per_px):
-        """xp-sized maps moved (read or written) plus one [B,H,W] map."""
-        B, C, Hp, Wp = xp.shape
-        n = B * (Hp - 2) * (Wp - 2)
-        return bound((n_maps_moved * xp.numel() + n) * 4, n * flops_per_px,
+    def photo_bound(x, n_images_moved, flops_per_px):
+        """[B,H,W,3] images moved (read or written) once, unpadded, plus
+        one [B,H,W] map (photo written or g read)."""
+        B, H, W, _ = x.shape
+        n = B * H * W
+        return bound((n_images_moved * x.numel() + n) * 4, n * flops_per_px,
                      'float32')
 
     wb = [warp_bound(img, grid, True, False) for img, grid, _ in w_items]
     db = [warp_bound(img, grid, False, True) for img, grid, *_ in d_items]
     pb = [warp_bound(img, grid, True, True) for img, grid, *_ in d_items]
-    # forward: xp, yp in, photo out; ~100 FLOPs a pixel and channel
+    # forward: x, y in, photo out; ~100 FLOPs a pixel and channel
     fb = [photo_bound(a[0], 2, 300) for a in f_items]
-    # backward: xp, yp, g in, dxp, dyp out; ~180 FLOPs a pixel and channel
-    bb = [photo_bound(a[0], 4, 540) for a in b_items]
+    # backward: x, y, g in, dx (and dy when asked) out; ~180 FLOPs a pixel
+    # and channel
+    bb = [photo_bound(a[0], 3 + int(a[3]), 540) for a in b_items]
 
     def total(bounds):
         b_all = sum(b[0] for b in bounds)
@@ -1462,10 +1578,14 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
                'warp_bit_equal_share': bit_equal,
                'step_i_memory_mib': step_memory,
                'photometric_max_err': photo_err, 'function_rel_err': fn_err,
+               'step_ii_kernel_launches': ii_kernels,
                'fp32_step_check': {'loss_rel': loss_rel,
                                    'kernels_vs_plain': grad_check,
                                    'plain_reversed_batch_vs_plain':
                                        order_check},
+               'fp32_per_scale_step_check': {
+                   'loss_rel': ps_rel, 'kernels_vs_plain': ps_check,
+                   'photometric_launches': ps_launches},
                'kernels': rows}
     os.makedirs('chiprun_out', exist_ok=True)
     with open('chiprun_out/chip_smoke_selfsup.json', 'w') as f:
@@ -1960,24 +2080,49 @@ def gather_phase(card, dev, gen, reset_counts, read_counts):
                 lambda: lg.lane_gather_loop_reference(x, idx, n), n=4),
             'bytes_ms': bytes_ms, 'ops_ms': ops_ms,
             'bound_ms': max(bytes_ms, ops_ms)})
+    # the practical floor beside the bound: an empty kernel's device time
+    # in a CUDA graph (torch.cuda._sleep(0), timed the same way) a launch,
+    # and for the loop, if longer, the dependent chain of an output's n
+    # adds: the loop kernel's graph time at n less its time at n = 0 on the
+    # same inputs, both measured here in turns (n, 0, 0, n)
+    empty_ms = probe.graph_time_ms(lambda: torch.cuda._sleep(0))
+    for row in rows:
+        row['floor_ms'] = empty_ms
+        if row['kernel'] != 'loop':
+            continue
+        S, n = row['S'], row['n_gathers']
+        x, idx = probe.inputs(S, 512, 128, dev)
+        out = torch.empty(S, 128, device=dev)
+        at = [probe.kernel_graph_us('lane_gather_loop', x, idx, out, k) * 1e-3
+              for k in (n, 0, 0, n)]
+        row['at_n_ms'], row['at_0_ms'] = (at[0] + at[3]) / 2, \
+            (at[1] + at[2]) / 2
+        row['chain_ms'] = row['at_n_ms'] - row['at_0_ms']
+        row['floor_ms'] = max(empty_ms, row['chain_ms'])
+    log('an empty kernel in a CUDA graph: {:.5f} ms a launch'.format(
+        empty_ms))
     tot = {}
     for row in rows:
         t = tot.setdefault(row['kernel'], {})
         for k in ('ms', 'plain_ms', 'library_ms', 'bytes_ms', 'ops_ms',
-                  'bound_ms'):
+                  'bound_ms', 'chain_ms', 'at_n_ms', 'at_0_ms', 'floor_ms'):
             if k in row:
                 t[k] = t.get(k, 0.0) + row[k]
         log('{kernel} {shape}: in a CUDA graph kernel {ms:.5f} ms plain '
-            '{plain_ms:.5f} library {lib}; bound {bound_ms:.3e} ms'.format(
+            '{plain_ms:.5f} library {lib}; bound {bound_ms:.3e} ms, floor '
+            '{floor_ms:.5f}{chain}'.format(
                 shape='[{},{}]'.format(row['S'], row.get('L', 512)) +
                 (' n={}'.format(row['n_gathers']) if 'n_gathers' in row
                  else ''),
                 lib='{:.5f}'.format(row['library_ms']) if 'library_ms' in row
-                else 'none', **row))
+                else 'none',
+                chain=' (dependent chain {:.5f}: {:.5f} at n less {:.5f} at '
+                '0)'.format(row['chain_ms'], row['at_n_ms'], row['at_0_ms'])
+                if 'chain_ms' in row else '', **row))
     with open('chiprun_out/chip_smoke_gather.json', 'w') as f:
         json.dump({'card': card, 'probe': result, 'cases': cases,
-                   'launches': launches, 'rows': rows, 'totals': tot}, f,
-                  indent=1)
+                   'launches': launches, 'rows': rows, 'totals': tot,
+                   'empty_kernel_graph_ms': empty_ms}, f, indent=1)
     g, lp = tot['gather'], tot['loop']
     return [{
         'name': 'lane_gather', 'route': 'cuda',
@@ -1988,7 +2133,7 @@ def gather_phase(card, dev, gen, reset_counts, read_counts):
                     '[16,128], [32,128], device time in a CUDA graph',
         'ms': g['ms'], 'graph_ms': g['ms'], 'plain_ms': g['plain_ms'],
         'bound_ms': g['bound_ms'], 'bound_by': 'bytes',
-        'library_ms': g['library_ms']}, {
+        'floor_ms': g['floor_ms'], 'library_ms': g['library_ms']}, {
         'name': 'lane_gather_loop', 'route': 'cuda',
         'source': 'packnet_sfm_tpu_torch/csrc/lane_gather.cu',
         'replaces': 'scripts/bench_dynamic_gather.py:64',
@@ -1998,7 +2143,8 @@ def gather_phase(card, dev, gen, reset_counts, read_counts):
         'ms': lp['ms'], 'graph_ms': lp['ms'], 'plain_ms': lp['plain_ms'],
         'bound_ms': lp['bound_ms'],
         'bound_by': 'bytes' if lp['bytes_ms'] > lp['ops_ms']
-        else 'operations', 'library_ms': None}]
+        else 'operations', 'floor_ms': lp['floor_ms'],
+        'chain_ms': lp['chain_ms'], 'library_ms': None}]
 
 
 def write_ncdb_tree(root, shape, n_frames, seed=0):

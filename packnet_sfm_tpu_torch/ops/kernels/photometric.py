@@ -8,21 +8,28 @@ its analytic gradient, with the JAX package's semantics
 
 Two hand-written Hopper kernels in `packnet_sfm_tpu_torch/csrc/photometric.cu`:
 - `photometric_fwd` replaces the Pallas `_fwd_kernel`;
-- `photometric_bwd` replaces `_bwd_kernel`: dxp, dyp by the raw-moment
-  formula, with the strict gate 0 < (1 - SSIM) / 2 < 1 and the L1 sign term.
+- `photometric_bwd` replaces `_bwd_kernel`: dx (and dy when asked) by the
+  raw-moment formula, with the strict gate 0 < (1 - SSIM) / 2 < 1 and the
+  L1 sign term, and the reflect pad's adjoint (`reflect_fold`).
 
-Both take the reflect-padded float32 xp, yp [B,3,H+2,W+2] (NCHW). As the
-JAX custom VJP sits after jnp.pad, the pad and its gradient fold stay in
-PyTorch around `PhotometricFunction`. The TPU kernel divides the channel
-mean by a literal 3, so the kernels take RGB only and the wrappers raise for
-another channel count. On CPU tensors the wrappers run the plain versions
-(`photometric_fwd_reference`, `photometric_bwd_reference`); there is no
-other fall back. Each wrapper counts its kernel launches in its `launches`
-attribute.
+Both take the images x, y [B,H,W,3] float32 as they come: NHWC with channel
+stride 1 and pixel stride 3, any batch and row strides (the warp's
+row-slices are read in place), H, W >= 2 as the reflect pad needs. The pad,
+the layout change and the pad's gradient are in the kernels' loads and
+stores; g may have any strides, 0 included. The TPU kernel divides the
+channel mean by a literal 3, so the kernels take RGB only and the wrappers
+raise for another channel count. On CPU tensors the wrappers run the plain
+composition (`_padded`, then `photometric_fwd_reference` or
+`photometric_bwd_reference` and `reflect_fold`); there is no other fall
+back. Each wrapper counts its kernel launches in its `launches` attribute.
 
 `photometric_map_fn` is the NHWC map through the Function (the loss's
-`use_pallas` path); `photometric_map_reference` is the same composition
-under plain autograd, without kernels or Function.
+`use_pallas` path). It takes x, y in any layout and float dtype: the
+loss's full-resolution images and the warp's row-slices pass as they are,
+anything else (an image resized by `ops/image.py` `interpolate`, an NCHW
+tensor seen through a permute) is copied to the layout the kernels read.
+`photometric_map_reference` is the same composition under plain autograd,
+without kernels or Function.
 """
 
 import torch
@@ -103,109 +110,19 @@ def photometric_bwd_reference(xp, yp, g, alpha=0.85, C1=1e-4, C2=9e-4):
     return dx + sgn, dy - sgn
 
 
-def _check(xp, yp, g=None):
-    if xp.dim() != 4 or xp.shape != yp.shape or xp.shape[2] < 3 or \
-            xp.shape[3] < 3:
-        raise ValueError('photometric map expects xp, yp [B,3,H+2,W+2] of '
-                         'one shape, got {} and {}'.format(
-                             tuple(xp.shape), tuple(yp.shape)))
-    if xp.shape[1] != 3:
-        raise ValueError('the photometric kernels take 3 channels (their '
-                         'channel mean divides by 3), got {}'.format(
-                             xp.shape[1]))
-    if g is not None and tuple(g.shape) != (xp.shape[0], xp.shape[2] - 2,
-                                            xp.shape[3] - 2):
-        raise ValueError('g must be [B,H,W], got {}'.format(tuple(g.shape)))
-
-
-def _check_launch(name, tensors):
-    if not all(t.is_cuda for t in tensors) or \
-            len({t.device for t in tensors}) != 1:
-        raise ValueError('the {} kernel needs CUDA tensors on one device'
-                         .format(name))
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError('{} takes float32 tensors'.format(name))
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError('{} needs contiguous tensors'.format(name))
-
-
-def _launch_fwd(xp, yp, alpha, C1, C2):
-    _check_launch('photometric_fwd', (xp, yp))
-    B, _, Hp, Wp = xp.shape
-    out = torch.empty((B, Hp - 2, Wp - 2), dtype=torch.float32,
-                      device=xp.device)
-    fn = build.function('photometric', 'photometric_fwd', 3, 3, 4)
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(xp.data_ptr(), yp.data_ptr(), out.data_ptr(), B, Hp - 2,
-                Wp - 2, alpha, 1.0 - alpha, C1, C2, stream)
-    if rc != 0:
-        raise RuntimeError('photometric_fwd launch failed: cudaError {}'
-                           .format(rc))
-    photometric_fwd.launches += 1
-    return out
-
-
-def _launch_bwd(xp, yp, g, alpha, C1, C2):
-    _check_launch('photometric_bwd', (xp, yp, g))
-    B, _, Hp, Wp = xp.shape
-    dxp, dyp = torch.empty_like(xp), torch.empty_like(yp)
-    fn = build.function('photometric', 'photometric_bwd', 5, 3, 4)
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(xp.data_ptr(), yp.data_ptr(), g.data_ptr(), dxp.data_ptr(),
-                dyp.data_ptr(), B, Hp - 2, Wp - 2, -0.5 * alpha / 3.0,
-                1.0 - alpha, C1, C2, stream)
-    if rc != 0:
-        raise RuntimeError('photometric_bwd launch failed: cudaError {}'
-                           .format(rc))
-    photometric_bwd.launches += 1
-    return dxp, dyp
-
-
-def photometric_fwd(xp, yp, alpha=0.85, C1=1e-4, C2=9e-4):
-    """photo [B,H,W] from the padded xp, yp [B,3,H+2,W+2], without
-    autograd. CUDA tensors go to the Hopper kernel (counted in
-    `photometric_fwd.launches`); CPU tensors to the plain version."""
-    _check(xp, yp)
-    if xp.device.type == 'cpu':
-        with torch.no_grad():
-            return photometric_fwd_reference(xp, yp, alpha, C1, C2)
-    return _launch_fwd(xp, yp, alpha, C1, C2)
-
-
-def photometric_bwd(xp, yp, g, alpha=0.85, C1=1e-4, C2=9e-4):
-    """(dxp, dyp) from g = d loss / d photo [B,H,W]. CUDA tensors go to the
-    Hopper kernel (counted in `photometric_bwd.launches`); CPU tensors to
-    the plain version."""
-    _check(xp, yp, g)
-    if xp.device.type == 'cpu':
-        return photometric_bwd_reference(xp, yp, g, alpha, C1, C2)
-    return _launch_bwd(xp, yp, g, alpha, C1, C2)
-
-
-photometric_fwd.launches = 0
-photometric_bwd.launches = 0
-
-
-class PhotometricFunction(torch.autograd.Function):
-    """The padded photometric map under autograd, as `_photo_padded`'s
-    custom VJP: forward by `photometric_fwd`, both cotangents by
-    `photometric_bwd` (float32, as the kernels are)."""
-
-    @staticmethod
-    def forward(ctx, xp, yp, alpha, C1, C2):
-        ctx.consts = (alpha, C1, C2)
-        ctx.save_for_backward(xp, yp)
-        return photometric_fwd(xp, yp, alpha, C1, C2)
-
-    @staticmethod
-    def backward(ctx, g):
-        xp, yp = ctx.saved_tensors
-        # g may come expanded (a mean's gradient): contiguous here
-        dxp, dyp = photometric_bwd(xp, yp, g.float().contiguous(),
-                                   *ctx.consts)
-        return dxp, dyp, None, None, None
+def reflect_fold(dp):
+    """The adjoint of the reflect pad by 1: [..., H+2, W+2] -> [..., H, W].
+    Rows first (padded row 0 added into row 2, row H+1 into row H-1), then
+    columns (0 into 2, W+1 into W-1), each in that order, so a corner is
+    (a22 + a02) + (a20 + a00); photometric_bwd's kernel folds in the same
+    order."""
+    H, W = dp.shape[-2] - 2, dp.shape[-1] - 2
+    r = dp.clone()
+    r[..., 2, :] = r[..., 2, :] + r[..., 0, :]
+    r[..., H - 1, :] = r[..., H - 1, :] + r[..., H + 1, :]
+    r[..., :, 2] = r[..., :, 2] + r[..., :, 0]
+    r[..., :, W - 1] = r[..., :, W - 1] + r[..., :, W + 1]
+    return r[..., 1:H + 1, 1:W + 1]
 
 
 def _padded(x):
@@ -214,16 +131,168 @@ def _padded(x):
                  mode='reflect').float().contiguous()
 
 
+def photometric_fwd_plain(x, y, alpha=0.85, C1=1e-4, C2=9e-4):
+    """The plain composition of the forward kernel: photo [B,H,W] from
+    x, y [B,H,W,3]."""
+    return photometric_fwd_reference(_padded(x), _padded(y), alpha, C1, C2)
+
+
+def photometric_bwd_plain(x, y, g, need_dy=True, alpha=0.85, C1=1e-4,
+                          C2=9e-4):
+    """The plain composition of the backward kernel: (dx, dy or None)
+    [B,H,W,3] from g [B,H,W]."""
+    dxp, dyp = photometric_bwd_reference(_padded(x), _padded(y), g, alpha,
+                                         C1, C2)
+    dx = reflect_fold(dxp).permute(0, 2, 3, 1)
+    return dx, (reflect_fold(dyp).permute(0, 2, 3, 1) if need_dy else None)
+
+
+def _check(x, y, g=None):
+    if x.dim() != 4 or x.shape != y.shape:
+        raise ValueError('photometric map expects x, y [B,H,W,3] of one '
+                         'shape, got {} and {}'.format(tuple(x.shape),
+                                                       tuple(y.shape)))
+    if x.shape[3] != 3:
+        raise ValueError('the photometric kernels take 3 channels (their '
+                         'channel mean divides by 3), got {}'.format(
+                             x.shape[3]))
+    if x.shape[1] < 2 or x.shape[2] < 2:
+        raise ValueError('the reflect pad needs H, W >= 2, got {}x{}'.format(
+            x.shape[1], x.shape[2]))
+    if g is not None and tuple(g.shape) != tuple(x.shape[:3]):
+        raise ValueError('g must be [B,H,W], got {}'.format(tuple(g.shape)))
+    tensors = (x, y) if g is None else (x, y, g)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError('the photometric kernels take float32 tensors, got '
+                        '{}'.format([t.dtype for t in tensors]))
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError('the photometric kernels need tensors on one device')
+
+
+_INT32 = 2 ** 31 - 1
+
+
+def _check_launch(name, images, g=None):
+    tensors = images if g is None else images + (g,)
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError('the {} kernel needs CUDA tensors on one device'
+                         .format(name))
+    _, H, W, _ = images[0].shape
+    for t in tensors:
+        s = t.stride()
+        if len(s) == 4 and (s[3] != 1 or s[2] != 3):
+            raise ValueError('{} needs NHWC images with channel stride 1 and '
+                             'pixel stride 3, got strides {}'.format(name, s))
+        # the kernels index within an image in 32 bits
+        if max(s) > _INT32 or (H - 1) * s[1] + (W - 1) * s[2] + 2 > _INT32:
+            raise ValueError('{} indexes an image in 32 bits: strides {} '
+                             'too large'.format(name, s))
+
+
+def _launch_fwd(x, y, alpha, C1, C2):
+    _check_launch('photometric_fwd', (x, y))
+    B, H, W, _ = x.shape
+    out = torch.empty((B, H, W), dtype=torch.float32, device=x.device)
+    fn = build.function('photometric', 'photometric_fwd', 3, 7, 4)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), B, H, W,
+                x.stride(0), x.stride(1), y.stride(0), y.stride(1), alpha,
+                1.0 - alpha, C1, C2, stream)
+    if rc != 0:
+        raise RuntimeError('photometric_fwd launch failed: cudaError {}'
+                           .format(rc))
+    photometric_fwd.launches += 1
+    return out
+
+
+def _launch_bwd(x, y, g, need_dy, alpha, C1, C2):
+    _check_launch('photometric_bwd', (x, y), g)
+    B, H, W, _ = x.shape
+    dx = torch.empty((B, H, W, 3), dtype=torch.float32, device=x.device)
+    dy = torch.empty_like(dx) if need_dy else None
+    fn = build.function('photometric', 'photometric_bwd', 5, 11, 4)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                dy.data_ptr() if need_dy else None, B, H, W, x.stride(0),
+                x.stride(1), y.stride(0), y.stride(1), *g.stride(),
+                int(need_dy), -0.5 * alpha / 3.0, 1.0 - alpha, C1, C2,
+                stream)
+    if rc != 0:
+        raise RuntimeError('photometric_bwd launch failed: cudaError {}'
+                           .format(rc))
+    photometric_bwd.launches += 1
+    return dx, dy
+
+
+def photometric_fwd(x, y, alpha=0.85, C1=1e-4, C2=9e-4):
+    """photo [B,H,W] from x, y [B,H,W,3], without autograd. CUDA tensors go
+    to the Hopper kernel (counted in `photometric_fwd.launches`); CPU
+    tensors to the plain composition."""
+    _check(x, y)
+    if x.device.type == 'cpu':
+        with torch.no_grad():
+            return photometric_fwd_plain(x, y, alpha, C1, C2)
+    return _launch_fwd(x, y, alpha, C1, C2)
+
+
+def photometric_bwd(x, y, g, need_dy=True, alpha=0.85, C1=1e-4, C2=9e-4):
+    """(dx, dy, or None without need_dy) [B,H,W,3] from g = d loss / d photo
+    [B,H,W], the reflect pad's gradient included. CUDA tensors go to the
+    Hopper kernel (counted in `photometric_bwd.launches`); CPU tensors to
+    the plain composition."""
+    _check(x, y, g)
+    if x.device.type == 'cpu':
+        return photometric_bwd_plain(x, y, g, need_dy, alpha, C1, C2)
+    return _launch_bwd(x, y, g, need_dy, alpha, C1, C2)
+
+
+photometric_fwd.launches = 0
+photometric_bwd.launches = 0
+
+
+class PhotometricFunction(torch.autograd.Function):
+    """The photometric map [B,H,W] of x, y [B,H,W,3] under autograd, as the
+    JAX custom VJP with the pad before it: forward by `photometric_fwd`,
+    the cotangents by `photometric_bwd` (dy only when y needs one)."""
+
+    @staticmethod
+    def forward(ctx, x, y, alpha, C1, C2):
+        ctx.consts = (alpha, C1, C2)
+        ctx.save_for_backward(x, y)
+        return photometric_fwd(x, y, alpha, C1, C2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        dx, dy = photometric_bwd(x, y, g, ctx.needs_input_grad[1],
+                                 *ctx.consts)
+        return dx, dy, None, None, None
+
+
+def _kernel_layout(t):
+    """t as float32 with channel stride 1 and pixel stride 3, the layout
+    the kernels read: t itself when it already is, else a copy (under
+    autograd, so its gradient goes back through the cast and the copy)."""
+    if t.dtype != torch.float32:
+        t = t.float()
+    if t.dim() == 4 and (t.stride(3) != 1 or t.stride(2) != 3):
+        t = t.contiguous()
+    return t
+
+
 def photometric_map_fn(x, y, alpha=0.85, C1=1e-4, C2=9e-4):
     """Fused photometric map of x, y [B,H,W,3] -> [B,H,W,1] float32,
     differentiable through the kernels."""
-    return PhotometricFunction.apply(_padded(x), _padded(y), float(alpha),
-                                     float(C1), float(C2))[..., None]
+    return PhotometricFunction.apply(_kernel_layout(x), _kernel_layout(y),
+                                     float(alpha), float(C1),
+                                     float(C2))[..., None]
 
 
 def photometric_map_reference(x, y, alpha=0.85, C1=1e-4, C2=9e-4):
-    """The same map through the plain forward under plain autograd."""
-    xp, yp = _padded(x), _padded(y)
-    _check(xp, yp)
-    return photometric_fwd_reference(xp, yp, float(alpha), float(C1),
-                                     float(C2))[..., None]
+    """The same map through the plain forward under plain autograd (the
+    pad's gradient by F.pad's own backward)."""
+    _check(x, y)
+    return photometric_fwd_reference(_padded(x), _padded(y), float(alpha),
+                                     float(C1), float(C2))[..., None]

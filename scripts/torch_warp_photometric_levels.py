@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """
-The warp and photometric-backward kernels (csrc/warp.cu and
-csrc/photometric.cu of the port) alone, on the card: build the sources of
-one or more trees, hold each tree's kernels against the plain versions of
-this checkout, and time them at the steps' shapes.
+The warp and photometric kernels (csrc/warp.cu and csrc/photometric.cu of
+the port) alone, on the card: build the sources of one or more trees, hold
+each tree's kernels against the plain versions of this checkout, and time
+them at the steps' shapes.
 
     python3 scripts/torch_warp_photometric_levels.py [--parent DIR]
         [--variant DIR] [--sass]
@@ -29,13 +29,21 @@ Per tree, the forward (`fwd`), the backward (`bwd`) and both in turn
 - generic: B1, a 384x384 fp32 source and grid, 2 launches; planes (i) and
   (ii) give the warp the same shapes (the projection is resampled to the
   image's resolution before the warp).
-The photometric backward at [8,3,194,642], 8 launches (a selfsup (ii)
-step), beside the PyTorch glue around PhotometricFunction over the same 8
-maps: the permute, reflect pad and `.float().contiguous()` of x and y, the
-cotangent's `.float().contiguous()` and the pad's gradient of dxp and dyp.
+The photometric function of a selfsup (ii) step at B8 192x640 on NHWC
+inputs as the loss hands them over: forward over the step's 10 maps (per
+context, the four row-slices of one warped [8,768,640,3] tensor and the
+unwarped context frame, each against the target image), backward over the
+8 warped maps without dy (the target is data), g a strided slice of the
+[8,192,640,4] cotangent of the step's min over the maps. A tree whose
+kernels take reflect-padded NCHW copies (an earlier interface) is timed
+with the glue PhotometricFunction then ran around them: the permute,
+reflect pad and `.float().contiguous()` of x and y before the forward; the
+cotangent's `.float().contiguous()` and the pad's gradient of dx after the
+backward.
 Each in a loop of calls (CUDA events, the host's issue included) and
-replayed in a CUDA graph (without it), with torch.profiler's kernel times,
-the plain versions' times, PyTorch's own warp pair (F.grid_sample and
+replayed in a CUDA graph (without it), with torch.profiler's kernel times
+and the number and time of the other kernels a call runs (the glue), the
+plain versions' times, PyTorch's own warp pair (F.grid_sample and
 aten.grid_sampler_2d_backward, grid gradient only, on float32 NCHW copies)
 and the bounds (chip_smoke.bound: bytes once at 3.35 TB/s or fp32
 operations at 67 TFLOP/s). Prints the card and one line per tree and shape,
@@ -65,10 +73,10 @@ WARP_SHAPES = (('selfsup_i', 'bfloat16', 8, 192, 640, 768),
                ('generic', 'float32', 1, 384, 384, 384))
 WARPS_PER_STEP = 2
 PHOTO_SHAPE = (8, 192, 640)
-PHOTO_BWD_PER_STEP = 8
+N_SCALES, N_CONTEXTS = 4, 2     # the (ii) step's warped maps a context
 ALPHA, C1, C2 = 0.85, 1e-4, 9e-4
 KERNEL_NAMES = ('warp_out_kernel', 'warp_dgrid_kernel', 'warp_kernel',
-                'photometric_bwd_kernel')
+                'photometric_fwd_kernel', 'photometric_bwd_kernel')
 
 
 def build_tree(tag, tree):
@@ -171,23 +179,82 @@ class Warp:
         self.run_bwd()
 
 
-class PhotoBwd:
-    """One tree's photometric_bwd on one input with preallocated outputs."""
+class PhotoFn:
+    """One tree's photometric function on one map (x, y [B,H,W,3] as the
+    loss holds them, g [B,H,W] strided or None) with preallocated outputs:
+    run_fwd writes photo, run_bwd dx. `padded`: the tree's kernels take
+    reflect-padded NCHW copies, made (and the pad's gradient taken) around
+    them as that tree's PhotometricFunction did."""
 
-    def __init__(self, lib, xp, yp, g):
+    def __init__(self, lib, padded, x, y, g):
         import torch
-        self.lib = lib
-        self.fn = bind(lib, 'photometric_bwd', 5, 3, 4)
-        self.xp, self.yp, self.g = xp, yp, g
-        self.dxp, self.dyp = torch.empty_like(xp), torch.empty_like(yp)
+        self.lib, self.padded = lib, padded
+        self.x, self.y, self.g = x, y, g
+        B, H, W, _ = x.shape
+        self.dims = (B, H, W)
+        self.photo = torch.empty(B, H, W, device=x.device)
+        if padded:
+            self.fwd_fn = bind(lib, 'photometric_fwd', 3, 3, 4)
+            self.bwd_fn = bind(lib, 'photometric_bwd', 5, 3, 4)
+            # the copies the forward saves for the backward
+            self.xp, self.yp = pad(x), pad(y)
+            self.dyp = torch.empty_like(self.yp)
+        else:
+            self.fwd_fn = bind(lib, 'photometric_fwd', 3, 7, 4)
+            self.bwd_fn = bind(lib, 'photometric_bwd', 5, 11, 4)
+            self.dx = torch.empty_like(
+                x, memory_format=torch.contiguous_format)
 
-    def run(self):
-        B, _, Hp, Wp = self.xp.shape
-        checked(self.fn(self.xp.data_ptr(), self.yp.data_ptr(),
-                        self.g.data_ptr(), self.dxp.data_ptr(),
-                        self.dyp.data_ptr(), B, Hp - 2, Wp - 2,
-                        -0.5 * ALPHA / 3.0, 1.0 - ALPHA, C1, C2, stream()),
-                'photometric_bwd')
+    def run_fwd(self):
+        if self.padded:
+            xp, yp = pad(self.x), pad(self.y)
+            checked(self.fwd_fn(xp.data_ptr(), yp.data_ptr(),
+                                self.photo.data_ptr(), *self.dims, ALPHA,
+                                1.0 - ALPHA, C1, C2, stream()),
+                    'photometric_fwd')
+        else:
+            x, y = self.x, self.y
+            checked(self.fwd_fn(x.data_ptr(), y.data_ptr(),
+                                self.photo.data_ptr(), *self.dims,
+                                x.stride(0), x.stride(1), y.stride(0),
+                                y.stride(1), ALPHA, 1.0 - ALPHA, C1, C2,
+                                stream()), 'photometric_fwd')
+
+    def run_bwd(self):
+        import torch
+        if self.padded:
+            g = self.g.float().contiguous()
+            dxp = torch.empty_like(self.xp)
+            checked(self.bwd_fn(self.xp.data_ptr(), self.yp.data_ptr(),
+                                g.data_ptr(), dxp.data_ptr(),
+                                self.dyp.data_ptr(), *self.dims,
+                                -0.5 * ALPHA / 3.0, 1.0 - ALPHA, C1, C2,
+                                stream()), 'photometric_bwd')
+            self.dx = torch.ops.aten.reflection_pad2d_backward(
+                dxp, self.x.permute(0, 3, 1, 2), [1, 1, 1, 1]).permute(
+                    0, 2, 3, 1)
+        else:
+            x, y, g = self.x, self.y, self.g
+            checked(self.bwd_fn(x.data_ptr(), y.data_ptr(), g.data_ptr(),
+                                self.dx.data_ptr(), None, *self.dims,
+                                x.stride(0), x.stride(1), y.stride(0),
+                                y.stride(1), *g.stride(), 0,
+                                -0.5 * ALPHA / 3.0, 1.0 - ALPHA, C1, C2,
+                                stream()), 'photometric_bwd')
+
+
+def pad(v):
+    """The parent's glue: NHWC -> reflect-padded float32 NCHW."""
+    import torch.nn.functional as F
+    return F.pad(v.permute(0, 3, 1, 2), (1, 1, 1, 1),
+                 mode='reflect').float().contiguous()
+
+
+def takes_padded(tree):
+    """Whether the tree's photometric kernels take padded NCHW copies (the
+    earlier C entry points have no stride arguments)."""
+    with open(os.path.join(tree, CSRC, 'photometric.cu')) as f:
+        return 'int sxb' not in f.read()
 
 
 def smooth_image(B, H, W, C, gen):
@@ -226,23 +293,34 @@ def flow_grid(B, Ho, Wo, H, W, gen):
 
 
 def photo_inputs(gen):
-    """xp, yp [B,3,H+2,W+2] (y a shifted, noisier x, reflect-padded) and
-    g [B,H,W] of one photometric map of the (ii) step."""
+    """The (ii) step's photometric maps: ([(x, y, g)] forward, the first
+    N_SCALES * N_CONTEXTS with their g for the backward). x is a row-slice
+    of one warped [B,4H,W,3] tensor a context (a shifted, noisier target)
+    or the context frame itself; y the target; g a strided slice of the
+    [B,H,W,4] cotangent of the min over a scale's four maps."""
     import torch
-    import torch.nn.functional as F
     B, H, W = PHOTO_SHAPE
-    x = smooth_image(B, H, W, 3, gen)
-    y = (torch.roll(x, (1, 2), (1, 2)) + 0.05 * torch.randn(
-        x.shape, device=gen.device, generator=gen)).clamp(0.0, 1.0)
-    pad = lambda v: F.pad(v.permute(0, 3, 1, 2), (1, 1, 1, 1),
-                          mode='reflect').contiguous()
-    g = torch.rand(B, H, W, device=gen.device, generator=gen) / (B * H * W)
-    return x, y, pad(x), pad(y), g
+    dev = gen.device
+    target = smooth_image(B, H, W, 3, gen)
+    fwd, bwd = [], []
+    for _ in range(N_CONTEXTS):
+        ref = smooth_image(B, H, W, 3, gen)
+        warped = torch.cat([(torch.roll(target, (1, 2), (1, 2)) + 0.05 * (
+            torch.randn(target.shape, device=dev, generator=gen))).clamp(
+                0.0, 1.0) for _ in range(N_SCALES)], 1)
+        for i in range(N_SCALES):
+            g = (torch.rand(B, H, W, 4, device=dev, generator=gen)
+                 / (B * H * W))[..., i % 4]
+            fwd.append((warped[:, i * H:(i + 1) * H], target, g))
+            bwd.append(fwd[-1])
+        fwd.append((ref, target, None))
+    return fwd, bwd
 
 
 def profiled(fn, names, iters=20):
     """Device ms a call of each kernel whose name holds one of `names`,
-    from torch.profiler over `iters` calls of fn."""
+    from torch.profiler over `iters` calls of fn, and under 'other' the
+    number and ms a call of every other kernel (the glue)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -251,14 +329,20 @@ def profiled(fn, names, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    out, other = {}, {'kernels': 0.0, 'ms': 0.0}
     for evt in prof.key_averages():
         total = getattr(evt, 'device_time_total', None)
         if total is None:
             total = getattr(evt, 'cuda_time_total', 0.0)
-        for name in names:
-            if name in evt.key and total:
-                out[name] = out.get(name, 0.0) + total / 1e3 / iters
+        if not total:
+            continue
+        hit = [name for name in names if name in evt.key]
+        for name in hit:
+            out[name] = out.get(name, 0.0) + total / 1e3 / iters
+        if not hit:
+            other['kernels'] += evt.count / iters
+            other['ms'] += total / 1e3 / iters
+    out['other'] = other
     return out
 
 
@@ -292,24 +376,33 @@ def check_warp(tag, kerns, wr):
     return err[0], err[1], same / n
 
 
-def check_photo(tag, kerns, ph):
-    """dxp, dyp against photometric_bwd_reference: atol 1e-6 x max|ref|,
-    rtol 1e-5 (chip_smoke's rule); identical images give exact zeros."""
+def check_photo(tag, fns, ph):
+    """photo and dx of each map against this checkout's plain compositions
+    (photometric_fwd_plain; photometric_bwd_plain without dy): forward
+    atol = rtol = 1e-6, backward atol 1e-6 x max|ref|, rtol 1e-5
+    (chip_smoke's rules); identical images give exact zeros."""
     import torch
-    err = 0.0
-    for k in kerns[:2]:
-        k.run()
+    err = [0.0, 0.0]
+    for k in fns:
+        k.run_fwd()
         torch.cuda.synchronize()
-        want = ph.photometric_bwd_reference(k.xp, k.yp, k.g)
-        for nm, a, b in zip(('dxp', 'dyp'), (k.dxp, k.dyp), want):
-            err = max(err, smoke.check_close(
-                '{} photometric {}'.format(tag, nm), a, b,
-                1e-6 * float(b.abs().max()), 1e-5))
-    k = kerns[0]
-    same = PhotoBwd(k.lib, k.xp, k.xp, k.g)
-    same.run()
+        want = ph.photometric_fwd_plain(k.x, k.y)
+        err[0] = max(err[0], smoke.check_close(
+            '{} photometric fwd'.format(tag), k.photo, want, 1e-6, 1e-6))
+        if k.g is None:
+            continue
+        k.run_bwd()
+        torch.cuda.synchronize()
+        want = ph.photometric_bwd_plain(k.x, k.y, k.g, False)[0]
+        err[1] = max(err[1], smoke.check_close(
+            '{} photometric bwd'.format(tag), k.dx, want,
+            1e-6 * float(want.abs().max()), 1e-5))
+    k = fns[0]
+    same = PhotoFn(k.lib, k.padded, k.x, k.x, k.g)
+    same.run_fwd()
+    same.run_bwd()
     torch.cuda.synchronize()
-    if bool(same.dxp.any()) or bool(same.dyp.any()):
+    if bool(same.photo.any()) or bool(same.dx.any()):
         raise AssertionError('{} photometric: identical images must give '
                              'exact zeros'.format(tag))
     return err
@@ -363,7 +456,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
-    results, failed = {'warp': [], 'photometric_bwd': None}, []
+    results, failed = {'warp': [], 'photometric': None}, []
 
     for name, dname, B, H, W, Ho in WARP_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -444,55 +537,63 @@ def main():
         results['warp'].append(row)
         del items, lib_items
 
-    # the photometric backward over a (ii) step's 8 maps, and its glue
+    # the photometric function over a (ii) step's 10 forward and 8
+    # backward maps
     gen = torch.Generator(device=dev).manual_seed(1)
-    maps = [photo_inputs(gen) for _ in range(PHOTO_BWD_PER_STEP)]
+    f_maps, b_maps = photo_inputs(gen)
     B, H, W = PHOTO_SHAPE
-    bb = [smoke.bound((4 * xp.numel() + B * H * W) * 4,
-                      B * H * W * 540, 'float32') for _, _, xp, _, _ in maps]
-
-    def glue():
-        for x, y, xp, yp, g in maps:
-            ph._padded(x)
-            ph._padded(y)
-            g.float().contiguous()
-            for d in (xp, yp):
-                torch.ops.aten.reflection_pad2d_backward(
-                    d, x.permute(0, 3, 1, 2), [1, 1, 1, 1])
+    n = B * H * W
+    # bounds: x, y read and photo written once, ~100 FLOPs a pixel and
+    # channel; x, y, g read and dx written once, ~180
+    fb = [smoke.bound((2 * 3 * n + n) * 4, n * 300, 'float32')
+          for _ in f_maps]
+    bb = [smoke.bound((3 * 3 * n + n) * 4, n * 540, 'float32')
+          for _ in b_maps]
     with torch.no_grad():
-        glue_t = {'ms': smoke.cuda_time_ms(glue),
-                  'graph_ms': smoke.graph_time_ms(glue)}
-        plain = smoke.cuda_time_ms(lambda: [
-            ph.photometric_bwd_reference(xp, yp, g)
-            for _, _, xp, yp, g in maps], iters=3, warmup=1)
-    row = {'shape': [B, 3, H + 2, W + 2], 'launches_per_step':
-           PHOTO_BWD_PER_STEP, 'bound_ms': sum(b[0] for b in bb),
-           'bound_by': 'bytes' if bb[0][1] > bb[0][2] else 'operations',
-           'plain_ms': plain, 'glue': glue_t, 'runs': []}
+        plain = {'fwd': smoke.cuda_time_ms(lambda: [
+            ph.photometric_fwd_plain(x, y) for x, y, _ in f_maps],
+            iters=3, warmup=1),
+                 'bwd': smoke.cuda_time_ms(lambda: [
+                     ph.photometric_bwd_plain(x, y, g, False)
+                     for x, y, g in b_maps], iters=3, warmup=1)}
+    row = {'shape': [B, H, W, 3], 'fwd_launches_per_step': len(f_maps),
+           'bwd_launches_per_step': len(b_maps),
+           'fwd_bound_ms': sum(b[0] for b in fb),
+           'bwd_bound_ms': sum(b[0] for b in bb),
+           'bound_by': 'bytes' if fb[0][1] > fb[0][2] else 'operations',
+           'plain_ms': plain, 'runs': []}
     for i, tag in enumerate(order):
-        kerns = [PhotoBwd(libs[tag]['photometric'], xp, yp, g)
-                 for _, _, xp, yp, g in maps]
+        padded = takes_padded(dict(trees)[tag])
+        fns = [PhotoFn(libs[tag]['photometric'], padded, *m) for m in f_maps]
         check = None
         if tag not in order[:i]:
             try:
-                check = {'err': check_photo('{} photometric_bwd'.format(tag),
-                                            kerns, ph)}
+                e_f, e_b = check_photo('{} photometric'.format(tag), fns, ph)
+                check = {'fwd_err': e_f, 'bwd_err': e_b}
             except AssertionError as exc:
                 check = {'failed': str(exc)}
                 failed.append(str(exc))
         with torch.no_grad():
-            run = dict(tree=tag, check=check, **times([k.run for k in kerns]))
+            run = {'tree': tag, 'padded_glue': padded, 'check': check,
+                   'fwd': times([k.run_fwd for k in fns]),
+                   'bwd': times([k.run_bwd for k in fns
+                                 if k.g is not None])}
         row['runs'].append(run)
-        smoke.log('{} photometric_bwd B{} 3x{}x{} x{}: {:.4f} ms (graph '
-                  '{:.4f}); profiler {}; bound {:.4f} ({}); glue {:.4f} '
-                  '(graph {:.4f}); plain {:.3f}{}'.format(
-                      tag, B, H + 2, W + 2, PHOTO_BWD_PER_STEP, run['ms'],
-                      run['graph_ms'], fmt_split(run['profiler_ms']),
-                      row['bound_ms'], row['bound_by'], glue_t['ms'],
-                      glue_t['graph_ms'], plain,
-                      '' if check is None else '; check ' + json.dumps(check)))
-        del kerns
-    results['photometric_bwd'] = row
+        smoke.log(
+            '{} photometric B{} {}x{} NHWC: fwd x{} {:.4f} ms (graph {:.4f}; '
+            'profiler {}), bound {:.4f}; bwd x{} {:.4f} (graph {:.4f}; '
+            'profiler {}), bound {:.4f} ({}); plain fwd {:.3f} bwd {:.3f}{}'
+            .format(tag, B, H, W, len(f_maps), run['fwd']['ms'],
+                    run['fwd']['graph_ms'],
+                    fmt_split(run['fwd']['profiler_ms']),
+                    row['fwd_bound_ms'], len(b_maps), run['bwd']['ms'],
+                    run['bwd']['graph_ms'],
+                    fmt_split(run['bwd']['profiler_ms']),
+                    row['bwd_bound_ms'], row['bound_by'], plain['fwd'],
+                    plain['bwd'],
+                    '' if check is None else '; check ' + json.dumps(check)))
+        del fns
+    results['photometric'] = row
 
     os.makedirs('chiprun_out', exist_ok=True)
     with open('chiprun_out/torch_warp_photometric_levels.json', 'w') as f:
@@ -505,8 +606,15 @@ def main():
 
 
 def fmt_split(split):
-    return ', '.join('{} {:.4f}'.format(k, v) for k, v in split.items()) \
-        or 'n/a'
+    """The profiler's kernel ms a call, and the other kernels' count and
+    ms."""
+    parts = ['{} {:.4f}'.format(k, v) for k, v in split.items()
+             if k != 'other']
+    other = split.get('other')
+    if other:
+        parts.append('other kernels {:g} ({:.4f} ms)'.format(
+            other['kernels'], other['ms']))
+    return ', '.join(parts) or 'n/a'
 
 
 def sass_histogram(tag, name, lib_path, top=20):
