@@ -104,6 +104,29 @@ it, with nothing of JAX:
    decode time per frame, both CLIs' img/s and the device's busy share of
    the eval loop (its kernel time under torch.profiler over one more pass,
    against that pass's wall time);
+   then training from disk (phase T): an NCDB-layout tree of 32 train and
+   8 validation frames at 384x640 with a split JSON each, train.fit on the
+   YAML at its B8 bf16 (2 epochs of 4 steps, a mid_epoch.ckpt every 2
+   steps, one quick eval of the 8 validation frames an epoch, a logger),
+   the counts reset just before and read just after each run: 30 forward
+   and 27 dgrad masked-conv launches a train step, 30 forward launches a
+   validation, quick-eval or logged-image frame (B1; the quick eval's
+   RGB-only forward runs no masked conv), nothing else; every step
+   applied (no loss skipped), the epoch losses finite, the top-k
+   checkpoints and evaluation_results/epoch_{0,1}_results.json (6 x 7
+   metrics) written, the stale mid_epoch.ckpt gone before the next epoch
+   saves; the mid_epoch.ckpt of step 2 of epoch 1 resumed through
+   train.fit: exactly 2 steps, its parameters against the uninterrupted
+   run's per leaf (max|err| 1e-1, norm 2e-2 of the leaf); then
+   configs/overfit_synthetic.yaml through the same loop for 3 epochs
+   (with its Synthetic frames' input depth and FiLM on, so that the SAN
+   branch runs: 2 warp forward, 2 dgrid, 30 / 27 masked-conv launches a
+   step), its loss falling; then the YAML's loader with the host jitter
+   (3 epochs: epoch 1 timed, epoch 2 under torch.profiler for the
+   device's busy share) and under tpu.device_augment (2 epochs), both
+   without validation: img/s with data, data and step ms a step, the
+   input-bound fraction; and the host's read-and-decode and train
+   transform ms a sample on one thread, with and without the jitter;
 4. (d) time eval img/s at B1 and the train step and img/s at B8, the
    forward kernel at the eval shapes and both kernels at the train shapes
    beside their plain versions, the library yardstick (one cuDNN call the
@@ -132,7 +155,8 @@ it, with nothing of JAX:
 Run with no arguments: `python3 chip_smoke.py`. Exits nonzero without a
 card. Extra output goes to chiprun_out/chip_smoke_convs.json,
 chiprun_out/chip_smoke_selfsup.json, chiprun_out/chip_smoke_generic.json,
-chiprun_out/chip_smoke_gather.json and chiprun_out/chip_smoke_cli.json.
+chiprun_out/chip_smoke_gather.json, chiprun_out/chip_smoke_cli.json and
+chiprun_out/chip_smoke_train_disk.json.
 """
 
 import contextlib
@@ -179,6 +203,14 @@ PADDING_MODES = {'zeros': 0, 'border': 1}   # aten.grid_sampler_2d's codes
 PROJ_PER_STEP = 2                      # one projection per context frame
 GATHER_ITERS = 200                     # timed launches of each probe shape
 CLI_FRAMES = 8                         # frames of the phase C tree
+TRAIN_FRAMES, VAL_FRAMES = 32, 8       # frames of the phase T tree
+DISK_EPOCHS = 2                        # epochs of the phase T run
+OVERFIT_CONFIG = 'configs/overfit_synthetic.yaml'
+OVERFIT_EPOCHS = 3
+# one float32 resumed run against the uninterrupted one: per parameter
+# leaf max|err| / max|leaf| and the same in the Frobenius norm (the train
+# step's limits; cuDNN's filter gradient need not be deterministic)
+RESUME_REL, RESUME_NORM = 1e-1, 2e-2
 # fp32 adds: one instruction a lane a clock, 128 lanes an SM, 132 SMs at
 # 1.98 GHz (the 67 TFLOP/s peak counts an FMA as two)
 H100_FP32_ADDS_PER_S = 132 * 128 * 1.98e9
@@ -815,6 +847,20 @@ def main():
     cli_launches = cli_phase(card, dev, reset_counts, read_counts)
     counts['fwd'] += cli_launches
 
+    # ---------------------------------------------------------------- T
+    disk_launches = train_disk_phase(card, reset_counts, read_counts)
+    for got in disk_launches.values():
+        counts['fwd'] += got['san_fwd']
+        counts['dgrad'] += got['san_dgrad']
+    for row in selfsup_rows:
+        key = {'warp_bilinear_out': 'warp_out',
+               'warp_bilinear_dgrid': 'warp_dgrid'}.get(row['name'])
+        if key:
+            for path, got in disk_launches.items():
+                if got[key]:
+                    row['launches'] += got[key]
+                    row['launches_by_path'][path] = got[key]
+
     # ---------------------------------------------------------------- 4
     step = make_eval_step(model)
     fwd_ms = cuda_time_ms(lambda: step(batch), iters=20)
@@ -921,7 +967,9 @@ def main():
         'launches': eval_launches + counts['fwd'],
         'launches_by_path': {'eval': eval_launches, 'train': train_fwd,
                              'selfsup': selfsup_launches['san_fwd'],
-                             'eval_cli': cli_launches},
+                             'eval_cli': cli_launches,
+                             **{k: v['san_fwd']
+                                for k, v in disk_launches.items()}},
         'reduce_launches': reduce_totals['san_fwd'],
         'max_abs_err': max_err['float32'],
         'max_abs_err_bf16': max_err['bfloat16'],
@@ -942,7 +990,9 @@ def main():
         'replaces': 'packnet_sfm_tpu/ops/pallas/san_conv.py:184',
         'launches': counts['dgrad'],
         'launches_by_path': {'train': train_dgrad,
-                             'selfsup': selfsup_launches['san_dgrad']},
+                             'selfsup': selfsup_launches['san_dgrad'],
+                             **{k: v['san_dgrad']
+                                for k, v in disk_launches.items()}},
         'reduce_launches': reduce_totals['san_dgrad'],
         'max_abs_err': dmax_err['float32'],
         'max_abs_err_bf16': dmax_err['bfloat16'],
@@ -2147,12 +2197,13 @@ def gather_phase(card, dev, gen, reset_counts, read_counts):
         'chain_ms': lp['chain_ms'], 'library_ms': None}]
 
 
-def write_ncdb_tree(root, shape, n_frames, seed=0):
+def write_ncdb_tree(root, shape, n_frames, seed=0, splits=None):
     """An NCDB-layout tree written with the port's own writers: n_frames
     uniform RGB frames and, in the depth_original folder that serves both
     the GT and the LiDAR input, 16-bit depth on 64 beam rows from 40% of
     the height down, 20% azimuth fill, 1-14 m (eval.make_batches' LiDAR,
-    inside the YAML's 0.5-15 m); and split.json."""
+    inside the YAML's 0.5-15 m); and the split files of `splits`
+    ({name: frame indices}; by default split.json, every frame)."""
     import numpy as np
     from packnet_sfm_tpu_torch.datasets.io import write_depth, write_image
     rng = np.random.RandomState(seed)
@@ -2171,8 +2222,9 @@ def write_ncdb_tree(root, shape, n_frames, seed=0):
         write_depth(os.path.join(root, 'seq', 'newest_original_depth_maps',
                                  stem + '.png'), depth)
         entries.append({'dataset_root': 'seq', 'new_filename': stem})
-    with open(os.path.join(root, 'split.json'), 'w') as f:
-        json.dump(entries, f)
+    for name, idx in (splits or {'split.json': range(n_frames)}).items():
+        with open(os.path.join(root, name), 'w') as f:
+            json.dump([entries[i] for i in idx], f)
     return os.path.join(root, 'seq', 'image_a6')
 
 
@@ -2314,6 +2366,298 @@ def cli_phase(card, dev, reset_counts, read_counts):
     with open('chiprun_out/chip_smoke_cli.json', 'w') as f:
         json.dump(summary, f, indent=1)
     return CONVS_PER_FORWARD * CLI_FRAMES
+
+
+class EpochRecorder:
+    """A logger for Trainer.fit: every per-epoch metrics dict, and how many
+    image sets it was handed."""
+
+    def __init__(self):
+        self.history = {}
+        self.images = 0
+
+    def log_metrics(self, metrics, step=None):
+        self.history.setdefault(int(step), {}).update(metrics)
+
+    def log_images(self, *args, **kwargs):
+        self.images += 1
+
+
+def train_disk_phase(card, reset_counts, read_counts):
+    """Phase T: training from disk (see the module note). Returns
+    {run: launch counts} of the runs through Trainer.fit."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from packnet_sfm_tpu_torch import train as port_train
+    from packnet_sfm_tpu_torch.config import parse_train_config
+    from packnet_sfm_tpu_torch.datasets.transforms import TrainTransform
+    from packnet_sfm_tpu_torch.trainers import trainer as trainer_mod
+    from packnet_sfm_tpu_torch.trainers.trainer import Trainer, make_loader
+    from packnet_sfm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    summary = {'card': card, 'train_frames': TRAIN_FRAMES,
+               'val_frames': VAL_FRAMES}
+    launches = {}
+
+    def expect(run, got, steps, val_forwards, warps=0):
+        want = dict.fromkeys(got, 0)
+        want.update(san_fwd=CONVS_PER_FORWARD * (steps + val_forwards),
+                    san_dgrad=DGRADS_PER_STEP * steps,
+                    warp_out=warps * steps, warp_dgrid=warps * steps)
+        if got != want:
+            raise AssertionError('{}: launches {}, expected {}'.format(
+                run, got, want))
+        launches[run] = got
+
+    def check_steps(run, trainer, steps):
+        if trainer.step != steps or trainer.optimizer.count != steps:
+            raise AssertionError('{}: {} steps, {} updates, expected {} '
+                                 '(a step skipped?)'.format(
+                                     run, trainer.step,
+                                     trainer.optimizer.count, steps))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, 'ncdb')
+        t0 = time.perf_counter()
+        write_ncdb_tree(root, (384, 640), TRAIN_FRAMES + VAL_FRAMES,
+                        splits={'train.json': range(TRAIN_FRAMES),
+                                'val.json': range(TRAIN_FRAMES,
+                                                  TRAIN_FRAMES + VAL_FRAMES)})
+        summary['write_tree_s'] = time.perf_counter() - t0
+        data = ['datasets.train.path', [root],
+                'datasets.train.split', ['train.json'],
+                'datasets.train.input_depth_type', ['depth_original'],
+                'datasets.validation.path', [root],
+                'datasets.validation.split', ['val.json'],
+                'datasets.validation.input_depth_type', ['depth_original']]
+        ck = os.path.join(tmp, 'ckpts')
+        main_run = data + [
+            'arch.max_epochs', DISK_EPOCHS, 'arch.eval_during_training',
+            True, 'arch.eval_progress_interval', 0.5,
+            'arch.eval_subset_size', VAL_FRAMES, 'checkpoint.filepath', ck,
+            'checkpoint.save_every_n_steps', 2]
+
+        # the path: train.py's loader-driven entry on the YAML, a
+        # mid_epoch.ckpt every 2 steps (the one at step 2 of epoch 1 kept
+        # aside), a quick eval each epoch; the stale mid_epoch.ckpt must be
+        # gone when the next epoch saves its first
+        kept = {}
+        real_save = trainer_mod.save_checkpoint
+
+        def capture(path, *args, extra=None, **kwargs):
+            consumed = extra['loader']['batches_consumed']
+            if os.path.exists(path) != (consumed > 2):
+                raise AssertionError('mid_epoch.ckpt at {} batches: stale '
+                                     'file {}'.format(consumed,
+                                                      os.path.exists(path)))
+            out = real_save(path, *args, extra=extra, **kwargs)
+            if extra['loader'] == {'epoch': 1, 'batches_consumed': 2}:
+                kept['path'] = shutil.copy(path, os.path.join(
+                    tmp, 'kept_mid_epoch.ckpt'))
+            return out
+
+        logger = EpochRecorder()
+        trainer_mod.save_checkpoint = capture
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            trainer = port_train.fit(CONFIG, 'cuda', main_run, logger=logger)
+            torch.cuda.synchronize()
+        finally:
+            trainer_mod.save_checkpoint = real_save
+        summary['fit_s'] = time.perf_counter() - t0
+        got = read_counts()
+        steps_per_epoch = TRAIN_FRAMES // int(
+            trainer.config.datasets.train.batch_size)
+        steps = DISK_EPOCHS * steps_per_epoch
+        # per epoch: the validation, one quick eval of VAL_FRAMES (RGB +
+        # LiDAR; the RGB-only forward runs no masked conv), one logged
+        # image batch; B1
+        expect('train_disk', got, steps, DISK_EPOCHS * (2 * VAL_FRAMES + 1))
+        check_steps('train_disk', trainer, steps)
+        losses = [logger.history[e]['train/loss'] for e in range(DISK_EPOCHS)]
+        if not all(np.isfinite(losses)) or logger.images != 2 * DISK_EPOCHS:
+            raise AssertionError('train from disk: losses {}, {} image '
+                                 'sets'.format(losses, logger.images))
+        run_dir = os.path.dirname(trainer.config.checkpoint.filepath)
+        ckpts = sorted(f for f in os.listdir(run_dir) if f.endswith('.ckpt'))
+        if [c[:3] for c in ckpts] != ['{:02d}_'.format(e)
+                                      for e in range(DISK_EPOCHS)]:
+            raise AssertionError('top-k checkpoints: {}'.format(ckpts))
+        for e in range(DISK_EPOCHS):
+            with open(os.path.join(run_dir, 'evaluation_results',
+                                   'epoch_{}_results.json'.format(e))) as f:
+                metrics = json.load(f)
+            if len(metrics) != 6 * 7 + 1 or not all(
+                    np.isfinite(v) for v in metrics.values()):
+                raise AssertionError('epoch {} eval JSON: {}'.format(
+                    e, metrics))
+        summary['train_disk'] = {
+            'losses': losses, 'checkpoints': ckpts,
+            'val_abs_rel': [logger.history[e]['val/depth-abs_rel']
+                            for e in range(DISK_EPOCHS)],
+            'epochs': {e: {k: v for k, v in logger.history[e].items()
+                           if k.startswith('train/')}
+                       for e in range(DISK_EPOCHS)}}
+        log('train.fit from disk B{} 384x640 bf16: {} epochs of {} steps '
+            'in {:.1f} s, launches {} forward / {} dgrad, epoch losses {}, '
+            'val abs_rel {}; checkpoints {}'.format(
+                trainer.config.datasets.train.batch_size, DISK_EPOCHS,
+                steps_per_epoch, summary['fit_s'], got['san_fwd'],
+                got['san_dgrad'], ['{:.4f}'.format(v) for v in losses],
+                ['{:.4f}'.format(v) for v in
+                 summary['train_disk']['val_abs_rel']], ckpts))
+        want_params = {n: p.detach().clone()
+                       for n, p in trainer.model.named_parameters()}
+        del trainer
+
+        # resume from the mid_epoch.ckpt of step 2 of epoch 1: exactly the
+        # 2 remaining steps, the validation and one quick eval
+        payload = load_checkpoint(kept['path'])
+        reset_counts()
+        resumed = port_train.fit(kept['path'], 'cuda', [
+            'checkpoint.filepath', os.path.join(tmp, 'resumed', '{epoch}')])
+        got = read_counts()
+        expect('resume', got, steps - payload['step'], 2 * VAL_FRAMES)
+        check_steps('resume', resumed, steps)
+        rel, worst, norm, _ = compare_grads(
+            {n: p.detach() for n, p in resumed.model.named_parameters()},
+            want_params)
+        summary['resume'] = {'from_step': payload['step'], 'max_rel': rel,
+                             'at': worst, 'norm_rel': norm}
+        log('resumed from mid_epoch.ckpt at step {} of {}: {} steps, '
+            'parameters vs the uninterrupted run per leaf max|err|/max|p| '
+            '{:.3e} (at {}), |err|/|p| {:.3e}'.format(
+                payload['step'], steps, steps - payload['step'], rel, worst,
+                norm))
+        if rel > RESUME_REL or norm > RESUME_NORM:
+            raise AssertionError('the resumed run disagrees with the '
+                                 'uninterrupted one')
+        del resumed, want_params
+
+        # the overfit config through the same loop, PoseNet over 2 contexts;
+        # as written it feeds no input depth and has no FiLM, so its depth
+        # net runs no SAN branch: here the Synthetic frames carry their
+        # sparse input depth and FiLM is on, which adds the masked convs
+        logger = EpochRecorder()
+        reset_counts()
+        over = port_train.fit(OVERFIT_CONFIG, 'cuda', [
+            'arch.max_epochs', OVERFIT_EPOCHS, 'checkpoint.filepath', '',
+            'model.depth_net.use_film', True,
+            'datasets.train.input_depth_type', ['depth'],
+            'datasets.validation.input_depth_type', ['depth']],
+            logger=logger)
+        got = read_counts()
+        loader = make_loader(over.config, 'train')
+        n_val = len(make_loader(over.config, 'validation'))
+        o_steps = OVERFIT_EPOCHS * len(loader)
+        expect('overfit', got, o_steps, OVERFIT_EPOCHS * (n_val + 1),
+               warps=WARPS_PER_STEP)
+        check_steps('overfit', over, o_steps)
+        o_losses = [logger.history[e]['train/loss']
+                    for e in range(OVERFIT_EPOCHS)]
+        summary['overfit'] = {'losses': o_losses, 'val_abs_rel': [
+            logger.history[e]['val/depth-abs_rel']
+            for e in range(OVERFIT_EPOCHS)]}
+        log('overfit_synthetic through Trainer.fit: {} epochs of {} steps, '
+            'launches {}, epoch losses {}'.format(
+                OVERFIT_EPOCHS, len(loader), {k: v for k, v in got.items()
+                                              if v},
+                ['{:.4f}'.format(v) for v in o_losses]))
+        if not (all(np.isfinite(o_losses)) and o_losses[-1] < o_losses[0]):
+            raise AssertionError('overfit loss did not fall: {}'.format(
+                o_losses))
+        del over
+
+        # the rates: the YAML's loader (host jitter) and tpu.device_augment,
+        # 3 and 2 epochs without validation or checkpoints; epoch 1 timed,
+        # epoch 2 of the first under torch.profiler for the busy share
+        class Profiled(Trainer):
+            def train_epoch(self, loader, val_loader, epoch):
+                if epoch != 2:
+                    return super().train_epoch(loader, val_loader, epoch)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    out = super().train_epoch(loader, val_loader, epoch)
+                    torch.cuda.synchronize()
+                    self.profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+                self.profiled_device_ms = sum(
+                    ev.device_time_total for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                ) * 1e-3
+                return out
+
+        rates = {}
+        for name, extra, epochs in (('host_jitter', [], 3),
+                                    ('device_augment',
+                                     ['tpu.device_augment', True], 2)):
+            cfg = parse_train_config(CONFIG, data + extra + [
+                'arch.max_epochs', epochs, 'arch.eval_during_training',
+                False, 'checkpoint.filepath', ''])
+            cfg.datasets.validation.dataset = []
+            logger = EpochRecorder()
+            reset_counts()
+            run = Profiled(cfg, logger=logger, device='cuda').fit()
+            got = read_counts()
+            expect(name, got, epochs * steps_per_epoch, 0)
+            check_steps(name, run, epochs * steps_per_epoch)
+            rates[name] = {k[len('train/'):]: v
+                           for k, v in logger.history[1].items()}
+            if epochs == 3:
+                if run.profiled_device_ms <= 0:
+                    raise AssertionError('the profiler saw no device time '
+                                         'in the epoch')
+                rates[name]['profiled_epoch_wall_ms'] = run.profiled_wall_ms
+                rates[name]['profiled_epoch_device_ms'] = \
+                    run.profiled_device_ms
+                rates[name]['device_busy_share'] = \
+                    run.profiled_device_ms / run.profiled_wall_ms
+            log('{} (epoch 1 of {}): {:.2f} img/s with data, data {:.1f} ms '
+                '| step {:.1f} ms a step, input-bound {:.3f}{}; {}'.format(
+                    name, epochs, rates[name]['img_per_s'],
+                    rates[name]['data_ms_per_step'],
+                    rates[name]['step_ms_per_step'],
+                    rates[name]['data_fraction'],
+                    '; epoch 2 under the profiler: device {:.1f} ms over '
+                    '{:.1f} ms, busy share {:.3f}'.format(
+                        run.profiled_device_ms, run.profiled_wall_ms,
+                        rates[name]['device_busy_share'])
+                    if epochs == 3 else '', card))
+            del run
+        summary['rates'] = rates
+
+        # the host's work a sample on one thread: read and decode (no
+        # transform), the train transform with and without the jitter
+        ds = make_loader(parse_train_config(CONFIG, data), 'train').dataset
+        keep = ds.transform
+        ds.transform = None
+        samples, t0 = [], time.perf_counter()
+        for i in range(min(16, len(ds))):
+            samples.append(ds[i])
+        host = {'decode_ms': (time.perf_counter() - t0) * 1e3 / len(samples)}
+        for name, t in (('transform_jitter_ms', keep),
+                        ('transform_no_jitter_ms', TrainTransform(
+                            keep.image_shape, (), keep.crop_train_borders))):
+            t0 = time.perf_counter()
+            for smp in samples:
+                t({k: (dict(v) if isinstance(v, dict) else v.copy()
+                       if isinstance(v, np.ndarray) else v)
+                   for k, v in smp.items()})
+            host[name] = (time.perf_counter() - t0) * 1e3 / len(samples)
+        summary['host_ms_per_sample'] = host
+        log('host, one thread, a 384x640 NCDB sample: read and decode '
+            '{:.2f} ms, train transform with jitter {:.2f} ms, without '
+            '{:.2f} ms; {}'.format(host['decode_ms'],
+                                   host['transform_jitter_ms'],
+                                   host['transform_no_jitter_ms'], card))
+    summary['launches'] = launches
+    with open('chiprun_out/chip_smoke_train_disk.json', 'w') as f:
+        json.dump(summary, f, indent=1)
+    return launches
 
 
 def time_forward(i, mod, mask, dtype, dname, esize, gen, san_conv):

@@ -1,11 +1,10 @@
 """
 Config parsing: default tree + YAML merge + per-dataset list broadcasting,
-and the test entry's checkpoint + YAML (a copy of the JAX package's
-config/config.py without parse_train_file, which waits for checkpoint
-resume in the trainer slice).
+the train entry's YAML or checkpoint, and the test entry's checkpoint +
+YAML (a copy of the JAX package's config/config.py).
 
 Reference: packnet_sfm/utils/config.py:13-44 (prep_dataset), :89-119,
-:258-332.
+:163-199, :258-332.
 """
 
 import os
@@ -76,6 +75,30 @@ def parse_train_config(yaml_path=None, overrides=None, defaults=None):
     if overrides:
         cfg.merge_from_list(overrides)
     return prepare_config(cfg)
+
+
+def parse_train_file(path, overrides=None):
+    """(config, checkpoint payload or None) of a train entry point: a YAML
+    (merged over the defaults, then the flat ['a.b.c', value, ...]
+    overrides), or a `.ckpt` or a directory of them (the last by name),
+    whose config is merged over the defaults and then the overrides, and
+    whose payload resumes the training (reference utils/config.py:163-199).
+    """
+    if not path:
+        return parse_train_config(None, overrides), None
+    if path.endswith(('.yaml', '.yml')):
+        return parse_train_config(path, overrides), None
+    if path.endswith('.ckpt') or os.path.isdir(path):
+        from packnet_sfm_tpu_torch.utils.checkpoint import load_checkpoint
+        state = load_checkpoint(path)
+        cfg = get_cfg_defaults().clone()
+        cfg.merge_from_dict(state['config'])
+        if overrides:
+            cfg.merge_from_list(overrides)
+        cfg.prepared = True
+        return cfg, state
+    raise ValueError('Unknown train file {} (.yaml or .ckpt expected)'
+                     .format(path))
 
 
 def parse_test_file(ckpt_path, yaml_path=None, overrides=None):

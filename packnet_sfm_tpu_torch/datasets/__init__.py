@@ -16,9 +16,11 @@ _NOT_PORTED = {
 }
 
 
-def setup_dataset(split_cfg, augmentation_cfg, mode):
+def setup_dataset(split_cfg, augmentation_cfg, mode, seed=0):
     """The list of datasets of one split from its config node; `mode` is
-    'validation' or 'test' ('train' raises until the trainer slice)."""
+    'train', 'validation' or 'test'. Train datasets each get their own
+    TrainTransform (crop_train_borders, jittering), its jitter keyed by
+    `seed` and the dataset's position in the split."""
     names = split_cfg.get('dataset', [])
     if not names:
         return []
@@ -34,11 +36,17 @@ def setup_dataset(split_cfg, augmentation_cfg, mode):
     def pick(values, i, default):
         return values[i] if i < len(values) else default
 
-    transform = get_transforms(
-        mode, image_shape=tuple(augmentation_cfg.get('image_shape', ())
-                                or ()),
-        crop_eval_borders=tuple(augmentation_cfg.get('crop_eval_borders', ())
-                                or ()))
+    def aug(key):
+        return tuple(augmentation_cfg.get(key, ()) or ())
+
+    transforms = [get_transforms(
+        mode, image_shape=aug('image_shape'),
+        jittering=aug('jittering') if mode == 'train' else (),
+        crop_train_borders=aug('crop_train_borders'),
+        crop_eval_borders=aug('crop_eval_borders'),
+        augmentation=augmentation_cfg, seed=seed, dataset=i)
+        for i in range(len(names))]
+
     datasets = []
     for i, name in enumerate(names):
         if name in _NOT_PORTED:
@@ -50,7 +58,7 @@ def setup_dataset(split_cfg, augmentation_cfg, mode):
                 depth_type=pick(depth_types, i, ''),
                 input_depth_type=pick(input_depth_types, i, ''),
                 mask_file=pick(mask_files, i, ''),
-                use_mask=pick(use_masks, i, False), transform=transform))
+                use_mask=pick(use_masks, i, False), transform=transforms[i]))
         elif name == 'Synthetic':
             datasets.append(SyntheticDataset(
                 num_samples=int(splits[i]) if str(splits[i]).isdigit()

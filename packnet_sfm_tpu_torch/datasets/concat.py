@@ -15,6 +15,11 @@ class ConcatDataset:
             total += len(ds) * r
             self.cum.append(total)
 
+    def set_epoch(self, epoch):
+        for ds in self.datasets:
+            if hasattr(ds, 'set_epoch'):
+                ds.set_epoch(epoch)
+
     def __len__(self):
         return self.cum[-1] if self.cum else 0
 

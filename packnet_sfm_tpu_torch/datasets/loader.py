@@ -1,7 +1,9 @@
 """
 Host-side data loader: batched, prefetched, one shard (the JAX package's
 datasets/loader.py, before its multi-process sharding, which waits for the
-DDP slice), and the move of a collated batch onto the device.
+DDP slice), the move of a collated batch onto the device, and
+`prefetch_to_device`, which keeps batches on the card ahead of the step
+(the JAX package's parallel/mesh.py prefetch_to_device).
 
 Samples are decoded by a thread pool (Pillow and numpy release the GIL),
 collated into stacked numpy arrays, and a background thread keeps
@@ -13,6 +15,7 @@ load and leaves the consumer waiting, a failed batch raises its error from
 `next()` and the iteration goes on with the next batch.
 """
 
+import collections
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -45,16 +48,32 @@ def default_collate(samples):
     return out
 
 
-def _to_device(value, device):
+def _to_device(value, device, pin=False):
+    """`value` (arrays and tensors, in dicts and lists too) on `device`.
+    With `pin`, each array is first copied into page-locked host memory
+    and moved with a non-blocking copy on the current stream."""
     if isinstance(value, np.ndarray):
-        return torch.from_numpy(value).to(device)
+        value = torch.from_numpy(value)
     if isinstance(value, torch.Tensor):
+        if pin:
+            return value.pin_memory().to(device, non_blocking=True)
         return value.to(device)
     if isinstance(value, dict):
-        return {k: _to_device(v, device) for k, v in value.items()}
+        return {k: _to_device(v, device, pin) for k, v in value.items()}
     if isinstance(value, list):
-        return [_to_device(v, device) for v in value]
+        return [_to_device(v, device, pin) for v in value]
     return value
+
+
+def _tensors(value):
+    if isinstance(value, torch.Tensor):
+        yield value
+    elif isinstance(value, dict):
+        for v in value.values():
+            yield from _tensors(v)
+    elif isinstance(value, list):
+        for v in value:
+            yield from _tensors(v)
 
 
 def to_device_batch(batch, device):
@@ -68,6 +87,47 @@ def to_device_batch(batch, device):
             'section 1: the Image and DGP datasets)')
     return {k: _to_device(v, device) for k, v in batch.items()
             if k not in HOST_KEYS}
+
+
+def prefetch_to_device(iterator, device, size=2):
+    """Yield the batches of `iterator` (collated host batches) on `device`
+    without their host-only keys, keeping `size` of them moved ahead of the
+    consumer. On the card each batch goes through page-locked host memory
+    and non-blocking copies on a side CUDA stream; the batch handed over
+    is ready for the consumer's stream, which waits on the copies' event,
+    and its tensors are recorded on that stream so that their memory is
+    not reused before its work on them is done. On the CPU the batches
+    move as `to_device_batch` moves them."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        for batch in iterator:
+            yield to_device_batch(batch, device)
+        return
+    side = torch.cuda.Stream(device)
+    ahead = collections.deque()
+
+    def put(batch):
+        batch = to_device_batch(batch, 'cpu')
+        with torch.cuda.stream(side):
+            moved = _to_device(batch, device, pin=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        return moved, done
+
+    def ready(item):
+        moved, done = item
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(done)
+        for t in _tensors(moved):
+            t.record_stream(consumer)
+        return moved
+
+    for batch in iterator:
+        ahead.append(put(batch))
+        if len(ahead) >= size:
+            yield ready(ahead.popleft())
+    while ahead:
+        yield ready(ahead.popleft())
 
 
 class _Failure:
@@ -134,18 +194,26 @@ class DataLoader:
         self._skip = 0
 
     def set_epoch(self, epoch):
-        """Reshuffle for `epoch` (DistributedSampler.set_epoch)."""
+        """Reshuffle for `epoch` (DistributedSampler.set_epoch), and pass
+        the epoch on to a dataset that keys its augmentation by it."""
         self.epoch = epoch
         self._consumed = 0
+        if hasattr(self.dataset, 'set_epoch'):
+            self.dataset.set_epoch(epoch)
+
+    @property
+    def skip(self):
+        """The batches the next iteration skips (a loaded position)."""
+        return self._skip
 
     def state_dict(self):
         """The position for an exact resume: (epoch, batches consumed)."""
         return {'epoch': self.epoch, 'batches_consumed': self._consumed}
 
     def load_state_dict(self, state):
-        """Resume at `state`: the next iteration skips the batches that
-        were consumed."""
-        self.epoch = int(state.get('epoch', 0))
+        """Resume at `state`: its epoch, and the next iteration skips the
+        batches that were consumed."""
+        self.set_epoch(int(state.get('epoch', 0)))
         self._skip = int(state.get('batches_consumed', 0))
 
     def _indices(self):

@@ -126,6 +126,11 @@ class NcdbDataset:
         p = self.root / base / folder / (stem + '.png')
         return p if p.exists() else None
 
+    def set_epoch(self, epoch):
+        """Pass the epoch on to a transform keyed by it (TrainTransform)."""
+        if hasattr(self.transform, 'set_epoch'):
+            self.transform.set_epoch(epoch)
+
     def __len__(self):
         return len(self.entries)
 

@@ -1,7 +1,13 @@
 """
-Sample transforms on the host (numpy, HWC float32 in [0,1]): the eval part
-of the JAX package's datasets/transforms.py.
+Sample transforms on the host (numpy, HWC float32 in [0,1]): the JAX
+package's datasets/transforms.py.
 
+- train: crop (crop_train_borders) -> resize every map (RGB LANCZOS through
+  uint8, depth and input depth by the sparse-preserving scatter, a mask
+  nearest) and scale the intrinsics and the fisheye principal point ->
+  keep un-jittered copies ('rgb_original', 'rgb_context_original') ->
+  colour jitter (brightness, contrast, saturation, HSV hue; one set of
+  factors for the target and its contexts);
 - validation / test: crop the inputs (eval GT depth stays full-size) ->
   resize RGB (Pillow LANCZOS, after the float -> uint8 quantization) and
   the input depth (validation: the sparse-preserving scatter; test:
@@ -11,8 +17,13 @@ of the JAX package's datasets/transforms.py.
 - crops and resizes move the intrinsics (3x3) and the fisheye principal
   point (distortion_coeffs ux, uy).
 
-The train pipeline (resize of every map, color jitter, advanced
-augmentations) waits for the trainer slice: get_transforms('train') raises.
+The JAX package draws the jitter from the global `np.random` unless given a
+generator, an order its loader threads do not fix. Here the jitter always
+takes an explicit `np.random.RandomState`: `TrainTransform` makes one per
+sample, keyed by (seed, dataset, epoch, sample index), so an epoch and a
+mid-epoch resume replay the same jitter. The factor distributions are the
+JAX package's. The advanced augmentations (RandAugment, random erasing)
+are not ported and raise.
 """
 
 import numpy as np
@@ -184,14 +195,170 @@ def test_transforms(sample, image_shape=(), crop_eval_borders=()):
     return _eval_transforms(sample, image_shape, crop_eval_borders, False)
 
 
-def get_transforms(mode, image_shape=(), crop_eval_borders=(), **kwargs):
-    """The sample transform of a split: 'validation' or 'test'. The train
-    transforms are not ported yet (ROADMAP.md section 1, the loader-driven
-    training loop)."""
+def resize_sample(sample, shape):
+    """Resize the images, depths and mask of a train sample to `shape` and
+    scale its intrinsics and fisheye principal point with them."""
+    h, w = sample['rgb'].shape[:2]
+    sx, sy = shape[1] / w, shape[0] / h
+    if 'intrinsics' in sample and \
+            np.asarray(sample['intrinsics']).shape == (3, 3):
+        sample['intrinsics'] = scale_intrinsics(
+            np.asarray(sample['intrinsics'], np.float32), sx, sy)
+    if 'distortion_coeffs' in sample:
+        dc = dict(sample['distortion_coeffs'])
+        dc['ux'] = dc['ux'] * sx
+        dc['uy'] = dc['uy'] * sy
+        sample['distortion_coeffs'] = dc
+    for key in ('rgb', 'rgb_original'):
+        if key in sample:
+            sample[key] = resize_image(sample[key], shape)
+    for key in ('rgb_context', 'rgb_context_original'):
+        if key in sample:
+            sample[key] = [resize_image(im, shape) for im in sample[key]]
+    for key in ('depth', 'input_depth'):
+        if key in sample and sample[key] is not None:
+            sample[key] = resize_depth_preserve(sample[key], shape)
+    if sample.get('mask') is not None:
+        sample['mask'] = resize_depth(sample['mask'], shape)
+    return sample
+
+
+def duplicate_sample(sample):
+    """Keep un-jittered copies of the images for the photometric loss."""
+    sample['rgb_original'] = sample['rgb'].copy()
+    if 'rgb_context' in sample:
+        sample['rgb_context_original'] = [im.copy()
+                                          for im in sample['rgb_context']]
+    return sample
+
+
+def _adjust_brightness(img, f):
+    return np.clip(img * f, 0, 1)
+
+
+def _adjust_contrast(img, f):
+    mean = img.mean(axis=(0, 1), keepdims=True).mean()
+    return np.clip((img - mean) * f + mean, 0, 1)
+
+
+def _adjust_saturation(img, f):
+    gray = (0.299 * img[..., 0] + 0.587 * img[..., 1]
+            + 0.114 * img[..., 2])[..., None]
+    return np.clip((img - gray) * f + gray, 0, 1)
+
+
+def _adjust_hue(img, f):
+    """Rotate the hue by `f` turns through HSV."""
+    maxc = img.max(axis=-1)
+    minc = img.min(axis=-1)
+    v = maxc
+    s = np.where(maxc > 0, (maxc - minc) / np.maximum(maxc, 1e-8), 0)
+    span = np.maximum(maxc - minc, 1e-8)
+    rc, gc, bc = (np.where(maxc > minc, (maxc - img[..., c]) / span, 0)
+                  for c in range(3))
+    h = np.where(img[..., 0] == maxc, bc - gc,
+                 np.where(img[..., 1] == maxc, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = (h / 6.0) % 1.0
+    h = (h + f) % 1.0
+    i = np.floor(h * 6.0)
+    fr = h * 6.0 - i
+    p = v * (1 - s)
+    q = v * (1 - s * fr)
+    t = v * (1 - s * (1 - fr))
+    i = i.astype(int) % 6
+    conds = [i == k for k in range(6)]
+    r = np.select(conds, [v, q, p, p, t, v])
+    g = np.select(conds, [t, v, v, q, p, p])
+    b = np.select(conds, [p, p, t, v, v, q])
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 1).astype(np.float32)
+
+
+def colorjitter_sample(sample, parameters, rng):
+    """Jitter 'rgb' and 'rgb_context' with one set of factors drawn from
+    `rng` (an np.random.RandomState): brightness, contrast and saturation
+    uniform in [max(0, 1 - x), 1 + x], hue uniform in [-h, h] turns."""
+    b, c, s, h = parameters
+    fb = rng.uniform(max(0, 1 - b), 1 + b)
+    fc = rng.uniform(max(0, 1 - c), 1 + c)
+    fs = rng.uniform(max(0, 1 - s), 1 + s)
+    fh = rng.uniform(-h, h)
+
+    def jitter(img):
+        img = _adjust_brightness(img, fb)
+        img = _adjust_contrast(img, fc)
+        img = _adjust_saturation(img, fs)
+        if h > 0:
+            img = _adjust_hue(img, fh)
+        return img.astype(np.float32)
+
+    sample['rgb'] = jitter(sample['rgb'])
+    if 'rgb_context' in sample:
+        sample['rgb_context'] = [jitter(im) for im in sample['rgb_context']]
+    return sample
+
+
+def train_transforms(sample, image_shape=(), jittering=(),
+                     crop_train_borders=(), rng=None):
+    """Crop, resize, keep the un-jittered copies, jitter. `rng` (an
+    np.random.RandomState) is required when `jittering` is set."""
+    if len(crop_train_borders) > 0:
+        borders = parse_crop_borders(crop_train_borders,
+                                     sample['rgb'].shape[:2])
+        sample = crop_sample(sample, borders)
+    if len(image_shape) > 0:
+        sample = resize_sample(sample, tuple(image_shape))
+    sample = duplicate_sample(sample)
+    if len(jittering) > 0:
+        if rng is None:
+            raise ValueError('the colour jitter needs an explicit '
+                             'np.random.RandomState')
+        sample = colorjitter_sample(sample, jittering, rng)
+    return sample
+
+
+class TrainTransform:
+    """`train_transforms` with a generator per sample: the jitter of sample
+    `idx` in `epoch` is drawn from np.random.RandomState([seed, dataset,
+    epoch, idx]). `set_epoch` moves it on (DataLoader.set_epoch reaches it
+    through the dataset)."""
+
+    def __init__(self, image_shape=(), jittering=(), crop_train_borders=(),
+                 seed=0, dataset=0):
+        self.image_shape = tuple(image_shape)
+        self.jittering = tuple(jittering)
+        self.crop_train_borders = tuple(crop_train_borders)
+        self.key = (int(seed), int(dataset))
+        self.epoch = 0
+
+    def set_epoch(self, epoch):
+        self.epoch = int(epoch)
+
+    def __call__(self, sample):
+        rng = np.random.RandomState(
+            self.key + (self.epoch, int(sample['idx'])))
+        return train_transforms(sample, self.image_shape, self.jittering,
+                                self.crop_train_borders, rng)
+
+
+def _refuse_advanced(augmentation):
+    for name in ('randaugment', 'random_erasing'):
+        if (augmentation or {}).get(name, {}).get('enabled', False):
+            raise NotImplementedError(
+                'datasets.augmentation.{} is not ported yet (ROADMAP.md '
+                'section 1, item 17: datasets/augmentations_advanced.py)'
+                .format(name))
+
+
+def get_transforms(mode, image_shape=(), jittering=(), crop_train_borders=(),
+                   crop_eval_borders=(), augmentation=None, seed=0,
+                   dataset=0):
+    """The sample transform of a split: 'train' (a TrainTransform keyed by
+    `seed` and `dataset`; RandAugment and random erasing raise),
+    'validation' or 'test'."""
     if mode == 'train':
-        raise NotImplementedError(
-            'the train transforms are not ported yet (ROADMAP.md section 1: '
-            'the loader-driven training loop)')
+        _refuse_advanced(augmentation)
+        return TrainTransform(image_shape, jittering, crop_train_borders,
+                              seed, dataset)
     if mode == 'validation':
         return lambda s: validation_transforms(s, image_shape,
                                                crop_eval_borders)

@@ -192,10 +192,12 @@ class SemiSupCompletionModel(SelfSupModel):
         if not self.training:
             return self.forward_base(batch)
         if self.qat_outputs:
-            raise NotImplementedError('QAT is not ported yet (slice 6)')
+            raise NotImplementedError(
+                'QAT is not ported yet (ROADMAP.md section 1, slice 7)')
         if getattr(self.depth_net, 'use_dual_head', False):
             raise NotImplementedError(
-                'the dual-head loss is not ported yet (slice 6)')
+                'the dual-head loss is not ported yet (ROADMAP.md section 1, '
+                'slice 7)')
         output, loss, metrics = self._self_sup_part(
             batch, progress, generator, self.supervised_loss_weight)
         gt_inv = depth2inv(self._clamp_gt(batch['depth']))

@@ -19,6 +19,7 @@ sum -> masked BN + ReLU; MinkowskiEncoder = 5 stages with kernel sizes
 [5, 5, 3, 3, 3] plus optional per-scale FiLM generators.
 """
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -66,6 +67,46 @@ def active_row_window(mask, Hw, align=32, bottom_margin=63):
     if s + Hw < need_bottom:
         s = min(max(-(-(need_bottom - Hw) // align) * align, 0), H - Hw)
     return s
+
+
+def calibrate_san_row_window(dataset, k=16, align=32, bottom_margin=63,
+                             safety_rows=32):
+    """A `san_row_window` fraction measured from the data, for
+    `san_row_window: -1`: over up to `k` samples of `dataset` spread over
+    its length, the band of rows that hold projected LiDAR, widened by the
+    bottom margin `active_row_window` needs for exactness and one
+    `safety_rows` band, rounded up to `align` rows. 0.0 (no crop) when a
+    sample has no 'input_depth' or the window would not be smaller than
+    the image. The window's start stays per batch (`active_row_window`);
+    only its size comes from here."""
+    n = len(dataset)
+    if n == 0:
+        return 0.0
+    take = np.linspace(0, n - 1, min(k, n)).astype(int)
+    r0, r1, H = None, None, None
+    for i in take:
+        d = dataset[int(i)].get('input_depth')
+        if d is None:
+            return 0.0
+        d = np.asarray(d)
+        if d.ndim == 3:                       # [H,W,1] or [1,H,W]
+            d = d[..., 0] if d.shape[-1] == 1 else d[0]
+        H = d.shape[0]
+        rows = np.flatnonzero((d > 0).any(axis=1))
+        if rows.size == 0:
+            continue
+        r0 = rows[0] if r0 is None else min(r0, rows[0])
+        r1 = rows[-1] if r1 is None else max(r1, rows[-1])
+    if r0 is None:
+        return 0.0
+    top = (r0 // align) * align
+    bottom = min(H, r1 + 1 + bottom_margin + safety_rows)
+    Hw = -(-(bottom - top) // align) * align
+    if Hw >= H or Hw <= 0:
+        return 0.0
+    # the model takes int(H * frac) // 32 * 32 rows: half a row more keeps
+    # float truncation from losing the last aligned block
+    return float((Hw + 0.5) / H)
 
 
 def crop_rows(x, s, Hw):

@@ -10,16 +10,26 @@ finite, parameters, Adam's moments and the schedule's count stay as they
 were, while the BN running statistics, which the forward moved, keep the
 move (as `mutable=['batch_stats']` does in JAX). The guard reads the loss
 on the host, one device sync per step.
+
+`Optimizer.state_dict` / `load_state_dict` carry Adam's state in the flax
+layout a checkpoint holds: per group ('depth', 'pose') the update count
+and the moments `mu` (exp_avg) and `nu` (exp_avg_sq) as trees shaped like
+that group's flax parameters (conv HWIO, Dense transposed, BN scale and
+bias; utils/flax_weights.py), and the schedules' count. `adam_state_from_
+optax` reads the same from the optax state of a JAX checkpoint.
 """
 
 import math
 
+import numpy as np
 import torch
 
 from packnet_sfm_tpu_torch.ops.depth import (
     sigmoid_to_inv_depth, inv2depth, compute_depth_metrics,
     dual_head_to_depth, post_process_inv_depth)
 from packnet_sfm_tpu_torch.ops.image import flip_lr
+from packnet_sfm_tpu_torch.utils.flax_weights import (
+    flax_param_arrays, flax_tree)
 
 
 def make_eval_step(model):
@@ -112,22 +122,26 @@ def make_lr_schedule(scheduler_cfg, base_lr, steps_per_epoch):
 
 
 class Optimizer:
-    """Adam over the depth and pose parameter groups, each with its own lr
-    schedule and optional L2 weight decay (optax's add_decayed_weights
-    before adam is torch Adam's `weight_decay`), after a global-norm clip.
+    """Adam over the depth and pose parameter groups of `model`, each with
+    its own lr schedule and optional L2 weight decay (optax's
+    add_decayed_weights before adam is torch Adam's `weight_decay`), after
+    a global-norm clip. `groups` is [(key, params, schedule, weight
+    decay)]; a group without parameters is left out.
 
     The clip is optax's clip_by_global_norm: g * max / |g| when |g| >= max,
     without the +1e-6 of torch.nn.utils.clip_grad_norm_. A parameter left
     without a gradient gets zeros, as every leaf has a gradient in JAX.
     `count` is the number of applied updates (optax's schedule count)."""
 
-    def __init__(self, groups, clip_grad=0.0):
-        groups = [g for g in groups if g[0]]
-        self.params = [p for ps, _, _ in groups for p in ps]
-        self.schedules = [sched for _, sched, _ in groups]
+    def __init__(self, model, groups, clip_grad=0.0):
+        groups = [g for g in groups if g[1]]
+        self.model = model
+        self.keys = [key for key, _, _, _ in groups]
+        self.params = [p for _, ps, _, _ in groups for p in ps]
+        self.schedules = [sched for _, _, sched, _ in groups]
         self.adam = torch.optim.Adam(
             [{'params': ps, 'lr': sched(0), 'weight_decay': wd}
-             for ps, sched, wd in groups], betas=(0.9, 0.999), eps=1e-8)
+             for _, ps, sched, wd in groups], betas=(0.9, 0.999), eps=1e-8)
         self.clip_grad = float(clip_grad or 0.0)
         self.count = 0
 
@@ -149,6 +163,131 @@ class Optimizer:
         self.adam.step()
         self.count += 1
 
+    def _names(self):
+        return {p: n for n, p in self.model.named_parameters()}
+
+    def state_dict(self):
+        """{'schedule_count': n, 'groups': {key: {'count': n, 'mu': tree,
+        'nu': tree}}} with numpy leaves; before the first update the
+        moments are zeros."""
+        names = self._names()
+        groups = {}
+        for key, group in zip(self.keys, self.adam.param_groups):
+            moments = {'mu': {}, 'nu': {}}
+            for p in group['params']:
+                st = self.adam.state.get(p, {})
+                for m, attr in (('mu', 'exp_avg'), ('nu', 'exp_avg_sq')):
+                    moments[m][names[p]] = st.get(attr, torch.zeros_like(p))
+            groups[key] = {'count': self.count,
+                           **{m: flax_tree(self.model, v)
+                              for m, v in moments.items()}}
+        return {'schedule_count': self.count, 'groups': groups}
+
+    def load_state_dict(self, state):
+        """Put back the state `state_dict` or `adam_state_from_optax`
+        gives. Raises ValueError unless every parameter of each group gets
+        both moments, the counts agree, and a group this optimizer lacks
+        (no parameters) holds no moment; KeyError or ValueError from the
+        layout mapping on a leaf that names no parameter or has the wrong
+        shape."""
+        groups = state['groups']
+        count = int(state['schedule_count'])
+        for key, g in groups.items():
+            if int(g['count']) != count:
+                raise ValueError('Adam state: group {!r} count {} vs the '
+                                 'schedule count {}'.format(key, g['count'],
+                                                            count))
+            if key not in self.keys and (g['mu'] or g['nu']):
+                raise ValueError('Adam state: moments for group {!r}, which '
+                                 'has no parameters here'.format(key))
+        names = self._names()
+        for key, group in zip(self.keys, self.adam.param_groups):
+            if key not in groups:
+                raise ValueError('Adam state: no group {!r}'.format(key))
+            mu, nu = (flax_param_arrays(self.model, groups[key][m])
+                      for m in ('mu', 'nu'))
+            want = {names[p] for p in group['params']}
+            if set(mu) != want or set(nu) != want:
+                raise ValueError(
+                    'Adam state of group {!r}: missing {}; unexpected {}'
+                    .format(key, sorted(want - (set(mu) & set(nu))),
+                            sorted((set(mu) | set(nu)) - want)))
+            for p in group['params']:
+                n = names[p]
+                self.adam.state[p] = {
+                    'step': torch.tensor(float(count)),
+                    'exp_avg': _like(mu[n], p),
+                    'exp_avg_sq': _like(nu[n], p)}
+        self.count = count
+
+
+def _like(arr, p):
+    return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+        p.device, p.dtype)
+
+
+def _stand_in(node, name):
+    """The fields of `node`, an optax NamedTuple come back from a
+    checkpoint as a stand-in (utils/checkpoint.py `Inert`) whose class name
+    is one of `name`; raises ValueError on anything else."""
+    names = (name,) if isinstance(name, str) else name
+    qualname = getattr(node, 'qualname', '')
+    if qualname.rsplit('.', 1)[-1] not in names:
+        raise ValueError('optax state: expected {}, found {!r}'.format(
+            ' or '.join(names), node))
+    return node.args
+
+
+def _unmask(tree):
+    """A moment tree of one optax group without its MaskedNode leaves (the
+    other group's parameters)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            sub = _unmask(v)
+            if sub:
+                out[k] = sub
+        elif isinstance(v, np.ndarray):
+            out[k] = v
+        else:
+            _stand_in(v, 'MaskedNode')
+    return out
+
+
+def adam_state_from_optax(opt_state):
+    """The Adam state of a JAX checkpoint's `opt_state`, in the format of
+    `Optimizer.state_dict`. Its tree (JAX parallel/train_step.py
+    make_optimizer): [chain(clip_by_global_norm ->] multi_transform({
+    'depth': adam, 'pose': adam}) [)], each adam [chain(add_decayed_weights
+    ->] (ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count))
+    [)] under a MaskedState whose other group's leaves are MaskedNodes.
+    Walked by field; raises ValueError on anything else (another
+    optimizer, grad accumulation)."""
+    node = opt_state
+    if isinstance(node, tuple) and len(node) == 2 and \
+            getattr(node[0], 'qualname', '').endswith('.EmptyState'):
+        node = node[1]                      # clip_by_global_norm's state
+    inner_states, = _stand_in(node, ('PartitionState',
+                                     'MultiTransformState'))
+    groups, counts = {}, set()
+    for key, masked in inner_states.items():
+        inner, = _stand_in(masked, 'MaskedState')
+        if len(inner) == 2 and isinstance(inner[1], tuple):
+            _stand_in(inner[0], 'EmptyState')    # add_decayed_weights
+            inner = inner[1]
+        if not isinstance(inner, tuple) or len(inner) != 2:
+            raise ValueError('optax state of group {!r}: {!r}'.format(
+                key, inner))
+        count, mu, nu = _stand_in(inner[0], 'ScaleByAdamState')
+        sched_count, = _stand_in(inner[1], 'ScaleByScheduleState')
+        groups[key] = {'count': int(count), 'mu': _unmask(mu),
+                       'nu': _unmask(nu)}
+        counts |= {int(count), int(sched_count)}
+    if len(counts) != 1:
+        raise ValueError('optax state: counts {} disagree'.format(
+            sorted(counts)))
+    return {'schedule_count': counts.pop(), 'groups': groups}
+
 
 def make_optimizer(model, optimizer_cfg, scheduler_cfg, steps_per_epoch,
                    clip_grad=0.0):
@@ -169,19 +308,23 @@ def make_optimizer(model, optimizer_cfg, scheduler_cfg, steps_per_epoch,
         cfg = optimizer_cfg.get(key, {})
         params = [p for n, p in named
                   if (n.split('.')[0] == 'pose_net') == (key == 'pose')]
-        groups.append((params,
+        groups.append((key, params,
                        make_lr_schedule(scheduler_cfg,
                                         float(cfg.get('lr', 2e-4)),
                                         steps_per_epoch),
                        float(cfg.get('weight_decay', 0.0))))
-    return Optimizer(groups, clip_grad)
+    return Optimizer(model, groups, clip_grad)
 
 
-def make_train_step(model, optimizer, generator=None):
+def make_train_step(model, optimizer, generator=None, augment=None):
     """step(batch, progress=0.0, epoch=0) -> {'loss', **metrics} (detached
     tensors). Runs the model in training mode; `generator` feeds its random
-    lr-flip. A non-finite loss skips the update (see the module note)."""
+    lr-flip and `augment(batch, generator)`, which runs first on the batch
+    when given (ops/augment.py, tpu.device_augment). A non-finite loss
+    skips the update (see the module note)."""
     def train_step(batch, progress=0.0, epoch=0):
+        if augment is not None:
+            batch = augment(batch, generator)
         model.train()
         optimizer.zero_grad()
         out = model(batch, progress=progress, epoch=epoch,

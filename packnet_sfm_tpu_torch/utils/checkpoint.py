@@ -10,18 +10,29 @@ jax, jaxlib or chex (the optimizer state's named tuples) and refuses every
 other global but numpy's array, dtype and scalar reconstructors (numpy 1's
 `numpy.core` and numpy 2's `numpy._core` names), a few builtins,
 OrderedDict and `_codecs.encode` (bytes in a protocol-2 pickle), so a
-crafted file reaches no function that runs its arguments. `save_checkpoint`
-writes the port's model in the same layout with `opt_state` None, which the
-JAX trainer takes on resume as "start a fresh optimizer"; Adam's state
-waits for the trainer slice. A reference (packnet-sfm, torch) checkpoint
-raises: its conversion is not ported.
+crafted file reaches no function that runs its arguments. A reference
+(packnet-sfm, torch) checkpoint raises: its conversion is not ported.
+
+`save_checkpoint` writes the port's model in the same layout. The port
+cannot pickle optax's classes without importing JAX, so `opt_state` stays
+None, which the JAX trainer takes on resume as "start a fresh optimizer",
+and Adam's state goes under the port's own key, 'adam_state', in the flax
+layout of `Optimizer.state_dict` with numpy leaves. `adam_state` reads it
+back, or converts the optax state of a JAX checkpoint. `ModelCheckpoint`
+keeps the top-k epoch checkpoints by the monitored metric (JAX
+utils/checkpoint.py); its first save also writes `save_code`'s snapshot of
+the sources. The JAX package's S3 sync needs the network and is left out.
 """
 
 import os
 import pickle
+import tarfile
 
+from packnet_sfm_tpu_torch.parallel.train_step import adam_state_from_optax
 from packnet_sfm_tpu_torch.utils.flax_weights import (
     flax_variables, load_flax_variables)
+
+ADAM_KEY = 'adam_state'
 
 _JAX_MODULES = ('optax', 'flax', 'jax', 'jaxlib', 'chex')
 _BUILTINS = ('dict', 'list', 'tuple', 'set', 'frozenset', 'int', 'float',
@@ -105,9 +116,13 @@ def load_checkpoint(path):
         return _Unpickler(f).load()
 
 
-def save_checkpoint(path, config, model, epoch=0, step=0):
+def save_checkpoint(path, config, model, epoch=0, step=0, optimizer=None,
+                    extra=None):
     """Write `model`'s weights and `config` as a JAX-package checkpoint at
-    `path` (opt_state None); returns the path."""
+    `path` (opt_state None), with `optimizer`'s Adam state under
+    'adam_state' when given and the entries of `extra` (a mid-epoch save's
+    {'loader': position}); returns the path. The file appears whole: it is
+    written aside and renamed."""
     os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
     variables = flax_variables(model)
     payload = {
@@ -118,11 +133,105 @@ def save_checkpoint(path, config, model, epoch=0, step=0):
         'batch_stats': variables['batch_stats'],
         'opt_state': None,
     }
+    if optimizer is not None:
+        payload[ADAM_KEY] = optimizer.state_dict()
+    payload.update(extra or {})
     tmp = '{}.tmp.{}'.format(path, os.getpid())
     with open(tmp, 'wb') as f:
         pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
     os.replace(tmp, path)
     return path
+
+
+def adam_state(payload):
+    """The Adam state of a checkpoint payload for `Optimizer.
+    load_state_dict`: the port's 'adam_state', else the JAX package's
+    optax `opt_state`; None when it holds neither."""
+    if payload.get(ADAM_KEY) is not None:
+        return payload[ADAM_KEY]
+    if payload.get('opt_state') is not None:
+        return adam_state_from_optax(payload['opt_state'])
+    return None
+
+
+def save_code(dirpath, root=None):
+    """Snapshot the port's sources (packnet_sfm_tpu_torch, scripts,
+    configs, tests, pyproject.toml) into <dirpath>/code.tar.gz, without
+    caches and checkpoints; returns its path."""
+    root = root or os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    out = os.path.join(dirpath, 'code.tar.gz')
+    junk = {'.git', '__pycache__', '.pytest_cache'}
+
+    def keep(info):
+        if junk & set(info.name.split('/')) or info.name.endswith(
+                ('.pyc', '.ckpt')):
+            return None
+        return info
+
+    os.makedirs(dirpath, exist_ok=True)
+    with tarfile.open(out, 'w:gz') as tar:
+        for sub in ('packnet_sfm_tpu_torch', 'scripts', 'configs', 'tests',
+                    'pyproject.toml'):
+            p = os.path.join(root, sub)
+            if os.path.exists(p):
+                tar.add(p, arcname=sub, filter=keep)
+    return out
+
+
+class ModelCheckpoint:
+    """Top-k epoch checkpoints on `monitor` (JAX utils/checkpoint.py,
+    reference model_checkpoint.py:27-126). `filepath` is a directory plus
+    a name template such as '{epoch:02d}_{depth-abs_rel:.3f}'; a template
+    that names a missing metric gives 'epoch_<NN>', and a bare directory
+    'model_{epoch:02d}'. mode 'auto' maximises metrics named a1, a2 or a3
+    and minimises the rest. A save is due every `period` epochs."""
+
+    def __init__(self, filepath, monitor='loss', save_top_k=5, mode='auto',
+                 period=1):
+        self.dirpath = os.path.dirname(filepath) or '.'
+        self.filename_tpl = os.path.basename(filepath) or 'model_{epoch:02d}'
+        self.monitor = monitor
+        self.save_top_k = save_top_k
+        self.period = period
+        self.epochs_since_last = 0
+        self.best_k_models = {}
+        self._code_saved = False
+        if mode == 'auto':
+            mode = 'max' if any(k in monitor for k in ('a1', 'a2', 'a3')) \
+                else 'min'
+        self.mode = mode
+
+    def _format_name(self, epoch, metrics):
+        values = {'epoch': epoch, **{k: float(v) for k, v in metrics.items()}}
+        try:
+            name = self.filename_tpl.format(**values)
+        except (KeyError, IndexError):
+            name = 'epoch_{:02d}'.format(epoch)
+        return name + '.ckpt'
+
+    def check_and_save(self, config, model, optimizer, metrics, epoch,
+                       step=0):
+        """Save the epoch's checkpoint if one is due and drop the worst
+        beyond the top k; returns the path written, or None."""
+        self.epochs_since_last += 1
+        if self.epochs_since_last < self.period:
+            return None
+        self.epochs_since_last = 0
+        current = float(metrics.get(self.monitor, metrics.get('loss', 0.0)))
+        path = os.path.join(self.dirpath, self._format_name(epoch, metrics))
+        save_checkpoint(path, config, model, epoch, step, optimizer)
+        if not self._code_saved:
+            self._code_saved = True
+            save_code(self.dirpath)
+        self.best_k_models[path] = current
+        if self.save_top_k > 0 and len(self.best_k_models) > self.save_top_k:
+            pick = max if self.mode == 'min' else min
+            worst = pick(self.best_k_models, key=self.best_k_models.get)
+            self.best_k_models.pop(worst)
+            if os.path.exists(worst):
+                os.remove(worst)
+        return path
 
 
 def load_weights(model, state, key='params'):

@@ -50,6 +50,29 @@ def _target(mod, leaf, value):
     return leaf, value
 
 
+def _torch_values(model, col, tree, shapes, values, unexpected):
+    """Convert the leaves of the flax collection `tree` ('params' or
+    'batch_stats') into `values` {state-dict key: array in the torch
+    layout} for the keys of `shapes` {key: shape}; names that find no key
+    go to `unexpected`. Raises ValueError on a shape mismatch."""
+    for path, value in _flatten(tree):
+        name = '/'.join((col,) + path)
+        try:
+            mod = model.get_submodule('.'.join(path[:-1]))
+        except AttributeError:
+            unexpected.append(name)
+            continue
+        attr, arr = _target(mod, path[-1], np.asarray(value))
+        key = '.'.join(path[:-1] + (attr,))
+        if key not in shapes or key in values:
+            unexpected.append(name)
+            continue
+        if tuple(arr.shape) != tuple(shapes[key]):
+            raise ValueError('{}: flax shape {} vs torch {} {}'.format(
+                name, arr.shape, key, tuple(shapes[key])))
+        values[key] = arr
+
+
 def flax_state_dict(model, variables):
     """The flax {'params', 'batch_stats'} tree (nested dicts of arrays) as
     {`model` state-dict key: numpy array in the torch layout}. A tree of
@@ -60,30 +83,31 @@ def flax_state_dict(model, variables):
     if extra_cols:
         raise KeyError('unexpected variable collections: {}'.format(
             sorted(extra_cols)))
-    state = model.state_dict()
+    shapes = {k: v.shape for k, v in model.state_dict().items()}
     values, unexpected = {}, []
     for col in ('params', 'batch_stats'):
-        for path, value in _flatten(variables.get(col, {})):
-            name = '/'.join((col,) + path)
-            try:
-                mod = model.get_submodule('.'.join(path[:-1]))
-            except AttributeError:
-                unexpected.append(name)
-                continue
-            attr, arr = _target(mod, path[-1], np.asarray(value))
-            key = '.'.join(path[:-1] + (attr,))
-            if key not in state or key in values:
-                unexpected.append(name)
-                continue
-            if tuple(arr.shape) != tuple(state[key].shape):
-                raise ValueError('{}: flax shape {} vs torch {} {}'.format(
-                    name, arr.shape, key, tuple(state[key].shape)))
-            values[key] = arr
-    missing = sorted(k for k in state if k not in values
+        _torch_values(model, col, variables.get(col, {}), shapes, values,
+                      unexpected)
+    missing = sorted(k for k in shapes if k not in values
                      and not k.endswith('num_batches_tracked'))
     if missing or unexpected:
         raise KeyError('flax -> torch weights: missing {}; unexpected {}'
                        .format(missing, sorted(unexpected)))
+    return values
+
+
+def flax_param_arrays(model, params):
+    """A flax 'params'-shaped tree over some or all of `model`'s parameters
+    (Adam's moments of one optimizer group) as {parameter name: numpy array
+    in the torch layout}, through the same mapping as the weights. Raises
+    KeyError on a leaf that names no parameter and ValueError on a shape
+    mismatch."""
+    shapes = {k: p.shape for k, p in model.named_parameters()}
+    values, unexpected = {}, []
+    _torch_values(model, 'params', params, shapes, values, unexpected)
+    if unexpected:
+        raise KeyError('flax -> torch parameters: unexpected {}'.format(
+            sorted(unexpected)))
     return values
 
 
@@ -97,16 +121,13 @@ def load_flax_variables(model, variables):
     return model
 
 
-def flax_variables(model):
-    """`model`'s weights as a flax {'params', 'batch_stats'} tree of float32
-    numpy arrays (parameters under 'params', buffers under 'batch_stats';
-    conv weights OIHW -> `kernel` HWIO, BN and GroupNorm names back to
-    flax's), the inverse of `flax_state_dict`, which checks the tree."""
-    param_keys = {name for name, _ in model.named_parameters()}
-    tree = {'params': {}, 'batch_stats': {}}
-    for key, value in model.state_dict().items():
-        if key.endswith('num_batches_tracked'):
-            continue
+def flax_tree(model, values):
+    """{`model` state-dict key: tensor} (weights, buffers, or per-parameter
+    state such as Adam's moments) as the nested flax tree of float32 numpy
+    arrays: conv weights OIHW -> `kernel` HWIO, BN and GroupNorm names back
+    to flax's; the inverse of `flax_state_dict` / `flax_param_arrays`."""
+    tree = {}
+    for key, value in values.items():
         *path, attr = key.split('.')
         mod = model.get_submodule('.'.join(path))
         arr = value.detach().cpu().float().numpy()
@@ -117,9 +138,23 @@ def flax_variables(model):
             leaf = _BN_LEAVES.get(attr, attr)
         elif isinstance(mod, nn.GroupNorm):
             leaf = _GN_LEAVES.get(attr, attr)
-        node = tree['params' if key in param_keys else 'batch_stats']
+        node = tree
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(arr)
+    return tree
+
+
+def flax_variables(model):
+    """`model`'s weights as a flax {'params', 'batch_stats'} tree of float32
+    numpy arrays (parameters under 'params', buffers under 'batch_stats'),
+    checked by `flax_state_dict`."""
+    param_keys = {name for name, _ in model.named_parameters()}
+    state = {k: v for k, v in model.state_dict().items()
+             if not k.endswith('num_batches_tracked')}
+    tree = {'params': flax_tree(model, {k: v for k, v in state.items()
+                                        if k in param_keys}),
+            'batch_stats': flax_tree(model, {k: v for k, v in state.items()
+                                             if k not in param_keys})}
     flax_state_dict(model, tree)
     return tree

@@ -1,7 +1,9 @@
-"""Metric names and the reference-style metrics table
-(reference: utils/logging.py:10-83, model_wrapper.py:792-918)."""
+"""Metric names, the reference-style metrics table and the rolling loss
+mean (reference: utils/logging.py:10-83,139-167, model_wrapper.py:792-918)."""
 
 import os
+
+import torch
 
 METRIC_NAMES = ['abs_rel', 'sqr_rel', 'rmse', 'rmse_log', 'a1', 'a2', 'a3']
 
@@ -26,3 +28,25 @@ def print_metrics_table(title, metrics_by_mode):
         lines.append(row.format(mode, *[float(v) for v in vals]))
     lines.append(bar)
     print('\n'.join(lines))
+
+
+class AvgMeter:
+    """Rolling mean of the last `n_max` values of a scalar stream (the
+    reference's AvgMeter(50) on the train loss). The values are kept as
+    they come, device tensors too; `get` reads their mean with one
+    transfer."""
+
+    def __init__(self, n_max=100):
+        self.n_max = n_max
+        self.values = []
+
+    def __call__(self, value):
+        self.values.append(value)
+        if len(self.values) > self.n_max:
+            self.values.pop(0)
+
+    def get(self):
+        if not self.values:
+            return 0.0
+        return float(torch.stack([torch.as_tensor(v, dtype=torch.float32)
+                                  for v in self.values]).mean())

@@ -97,7 +97,9 @@ def main():
     batch = port_eval.make_batches(port_eval.image_shape(config),
                                    args.batch_size, 1, 0, 'cuda',
                                    port_train.n_contexts(config))[0]
-    step = Trainer(config, model, steps_per_epoch=1).train_step
+    trainer = Trainer(config, device='cuda', model=model)
+    trainer.setup(1)
+    step = trainer.train_step
     for _ in range(3):
         step(batch)
     torch.cuda.synchronize()

@@ -178,5 +178,14 @@ def test_setup_dataset_matches_jax_and_refuses_unported(ncdb_root):
         node.dataset = [name]
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             setup_dataset(node, cfg.datasets.augmentation, 'test')
-    with pytest.raises(NotImplementedError, match='train'):
-        setup_dataset(cfg.datasets.test, cfg.datasets.augmentation, 'train')
+    # train mode builds the train transform; with the jitter off a train
+    # sample equals the JAX package's
+    aug = cfg.datasets.augmentation.clone()
+    aug.jittering = ()
+    got = setup_dataset(cfg.datasets.test, aug, 'train')
+    want = j_setup_dataset(cfg.datasets.test, aug, 'train')
+    assert_same(got[0][1], want[0][1])
+    assert got[0][1]['depth'].shape == (16, 24, 1)   # train resizes GT too
+    aug.random_erasing.enabled = True
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        setup_dataset(cfg.datasets.test, aug, 'train')

@@ -6,6 +6,8 @@ import numpy as np
 import pytest
 import torch
 
+from packnet_sfm_tpu_torch.trainers.trainer import Trainer
+
 
 @pytest.fixture
 def one_torch_thread():
@@ -20,6 +22,8 @@ def one_torch_thread():
 
 CONFIG = str(Path(__file__).resolve().parents[1] / 'configs' /
              'train_resnet_san_ncdb_640x384.yaml')
+OVERFIT = str(Path(__file__).resolve().parents[1] / 'configs' /
+              'overfit_synthetic.yaml')
 # 32x48 NCDB frames (tests/test_datasets.py make_ncdb_tree) read at 32x64,
 # float32 convs, LiDAR input from the GT folder, as tests/test_ncdb_e2e.py
 CLI_SHAPE = (32, 64)
@@ -77,3 +81,69 @@ def write_jax_checkpoint(path, ncdb_root, seed=4):
                        step=np.int32(7), epoch=np.int32(1))
     save_checkpoint(path, cfg, state)
     return variables
+
+
+def write_ncdb_splits(root, shape, n_train, n_val, seed=0):
+    """An NCDB-layout tree at `shape` written with the port's writers:
+    uniform RGB frames and, in the depth_original folder that serves as GT
+    and LiDAR input, depth of 1-14 m on 16 beam rows from 40% of the height
+    down at 30% azimuth fill; 'train.json' lists the first `n_train`
+    frames and 'val.json' the next `n_val`. Returns `root`."""
+    import json
+    import os
+    from packnet_sfm_tpu_torch.datasets.io import write_depth, write_image
+    rng = np.random.RandomState(seed)
+    H, W = shape
+    rows = np.linspace(int(H * 0.4), H - 1, 16).astype(int)
+    for sub in ('image_a6', 'newest_original_depth_maps'):
+        os.makedirs(os.path.join(root, 'seq', sub), exist_ok=True)
+    entries = []
+    for i in range(n_train + n_val):
+        stem = 'frame_{:04d}'.format(i)
+        write_image(os.path.join(root, 'seq', 'image_a6', stem + '.png'),
+                    rng.rand(H, W, 3).astype(np.float32))
+        depth = np.zeros((H, W), np.float32)
+        depth[rows] = (rng.rand(len(rows), W) * 13 + 1) * (
+            rng.rand(len(rows), W) < 0.3)
+        write_depth(os.path.join(root, 'seq', 'newest_original_depth_maps',
+                                 stem + '.png'), depth)
+        entries.append({'dataset_root': 'seq', 'new_filename': stem})
+    for name, part in (('train.json', entries[:n_train]),
+                       ('val.json', entries[n_train:])):
+        with open(os.path.join(root, name), 'w') as f:
+            json.dump(part, f)
+    return root
+
+
+def ncdb_train_overrides(root, shape, batch_size=2):
+    """Overrides that point the NCDB YAML's train and validation splits at
+    a `write_ncdb_splits` tree and cut them to CPU size (float32 convs)."""
+    return ['tpu.compute_dtype', 'float32',
+            'datasets.augmentation.image_shape', tuple(shape),
+            'datasets.train.path', [root], 'datasets.train.split',
+            ['train.json'], 'datasets.train.batch_size', batch_size,
+            'datasets.train.num_workers', 2,
+            'datasets.validation.path', [root],
+            'datasets.validation.split', ['val.json'],
+            'datasets.validation.input_depth_type', ['depth_original'],
+            'datasets.validation.num_workers', 2]
+
+
+class RecordingTrainer(Trainer):
+    """The port's Trainer, recording each step's loss in `losses`."""
+
+    def _build_step(self):
+        super()._build_step()
+        step, self.losses = self.train_step, []
+
+        def recorded(*args):
+            out = step(*args)
+            self.losses.append(float(out['loss']))
+            return out
+        self.train_step = recorded
+
+
+def ckpt_files(folder):
+    """The .ckpt files under `folder`, relative to it, sorted."""
+    return sorted(str(p.relative_to(folder))
+                  for p in Path(folder).rglob('*.ckpt'))
