@@ -116,12 +116,18 @@ it, with nothing of JAX:
    checkpoints and evaluation_results/epoch_{0,1}_results.json (6 x 7
    metrics) written, the stale mid_epoch.ckpt gone before the next epoch
    saves; the mid_epoch.ckpt of step 2 of epoch 1 resumed through
-   train.fit: exactly 2 steps, its parameters against the uninterrupted
-   run's per leaf (max|err| 1e-1, norm 2e-2 of the leaf); then
+   train.fit: exactly 2 steps, its update (the parameters after them less
+   the checkpoint's) against the uninterrupted run's per leaf at the
+   train step's limits, and the same file without its Adam state resumed
+   as the control, which must fail that check; then
    configs/overfit_synthetic.yaml through the same loop for 3 epochs
    (with its Synthetic frames' input depth and FiLM on, so that the SAN
    branch runs: 2 warp forward, 2 dgrid, 30 / 27 masked-conv launches a
-   step), its loss falling; then the YAML's loader with the host jitter
+   step), its loss falling, and one float32 step of that model on a
+   batch of its loader (B2 64x96, the path's own shapes) through every
+   kernel against every plain version, held to the train step's limits,
+   with the reversed batch as the control; then the YAML's loader with
+   the host jitter
    (3 epochs: epoch 1 timed, epoch 2 under torch.profiler for the
    device's busy share) and under tpu.device_augment (2 epochs), both
    without validation: img/s with data, data and step ms a step, the
@@ -207,10 +213,6 @@ TRAIN_FRAMES, VAL_FRAMES = 32, 8       # frames of the phase T tree
 DISK_EPOCHS = 2                        # epochs of the phase T run
 OVERFIT_CONFIG = 'configs/overfit_synthetic.yaml'
 OVERFIT_EPOCHS = 3
-# one float32 resumed run against the uninterrupted one: per parameter
-# leaf max|err| / max|leaf| and the same in the Frobenius norm (the train
-# step's limits; cuDNN's filter gradient need not be deterministic)
-RESUME_REL, RESUME_NORM = 1e-1, 2e-2
 # fp32 adds: one instruction a lane a clock, 128 lanes an SM, 132 SMs at
 # 1.98 GHz (the 67 TFLOP/s peak counts an FMA as two)
 H100_FP32_ADDS_PER_S = 132 * 128 * 1.98e9
@@ -397,6 +399,27 @@ def compare_grads(got, want):
         else:
             zero = max(zero, err / gmax)
     return rel, worst, norm, zero
+
+
+def step_gradients(model, runs):
+    """(loss, gradients by leaf) of one step of `model` for each of `runs`
+    ((plain, batch) each: through every plain version under plain autograd
+    when plain, else through the kernels; a leaf the loss does not reach
+    gets zeros)."""
+    import torch
+    res = []
+    for plain, b in runs:
+        model.zero_grad(set_to_none=True)
+        with plain_versions() if plain else contextlib.nullcontext():
+            out = model(b)
+            out['loss'].backward()
+        res.append((float(out['loss'].detach()),
+                    {n: p.grad.detach().clone() if p.grad is not None
+                     else torch.zeros_like(p)
+                     for n, p in model.named_parameters()}))
+        del out
+    torch.cuda.synchronize()
+    return res
 
 
 def hmma_count(lib_path):
@@ -793,19 +816,10 @@ def main():
     # in reverse order: the loss is the same function, only sums change order
     _, fmodel = port_train.build(CONFIG, 'cuda', seed=0,
                                  overrides=['tpu.compute_dtype', 'float32'])
-    step_grads = []
-    for plain, b in ((False, tbatch), (True, tbatch),
-                     (True, {k: v.flip(0) for k, v in tbatch.items()})):
-        fmodel.zero_grad(set_to_none=True)
-        with plain_versions() if plain else contextlib.nullcontext():
-            out = fmodel(b)
-            out['loss'].backward()
-        step_grads.append((float(out['loss'].detach()),
-                           {n: p.grad.detach().clone()
-                            for n, p in fmodel.named_parameters()}))
-        del out
+    (loss_k, gk), (loss_p, gp), (_, gr) = step_gradients(
+        fmodel, ((False, tbatch), (True, tbatch),
+                 (True, {k: v.flip(0) for k, v in tbatch.items()})))
     del fmodel
-    (loss_k, gk), (loss_p, gp), (_, gr) = step_grads
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     grad_check = compare_grads(gk, gp)
     order_check = compare_grads(gr, gp)
@@ -1344,24 +1358,13 @@ def selfsup_phase(card, dev, gen, reset_counts, read_counts):
                                      overrides=['tpu.compute_dtype',
                                                 'float32'] + FP32_MAPS +
                                      extra)
-        res = []
         kernels = (photometric.photometric_fwd, photometric.photometric_bwd)
         before = [k.launches for k in kernels]
-        for plain, b in runs:
-            fmodel.zero_grad(set_to_none=True)
-            with plain_versions() if plain else contextlib.nullcontext():
-                out = fmodel(b)
-                out['loss'].backward()
-            res.append((float(out['loss'].detach()),
-                        {n: p.grad.detach().clone()
-                         for n, p in fmodel.named_parameters()}))
-            del out
-        torch.cuda.synchronize()
+        res = step_gradients(fmodel, runs)
         return res, [k.launches - n for k, n in zip(kernels, before)]
 
-    step_grads, _ = fp32_steps([], ((False, batch), (True, batch),
-                                    (True, reversed_batch(batch))))
-    (loss_k, gk), (loss_p, gp), (_, gr) = step_grads
+    ((loss_k, gk), (loss_p, gp), (_, gr)), _ = fp32_steps(
+        [], ((False, batch), (True, batch), (True, reversed_batch(batch))))
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     grad_check = compare_grads(gk, gp)
     order_check = compare_grads(gr, gp)
@@ -2197,37 +2200,6 @@ def gather_phase(card, dev, gen, reset_counts, read_counts):
         'chain_ms': lp['chain_ms'], 'library_ms': None}]
 
 
-def write_ncdb_tree(root, shape, n_frames, seed=0, splits=None):
-    """An NCDB-layout tree written with the port's own writers: n_frames
-    uniform RGB frames and, in the depth_original folder that serves both
-    the GT and the LiDAR input, 16-bit depth on 64 beam rows from 40% of
-    the height down, 20% azimuth fill, 1-14 m (eval.make_batches' LiDAR,
-    inside the YAML's 0.5-15 m); and the split files of `splits`
-    ({name: frame indices}; by default split.json, every frame)."""
-    import numpy as np
-    from packnet_sfm_tpu_torch.datasets.io import write_depth, write_image
-    rng = np.random.RandomState(seed)
-    H, W = shape
-    rows = np.linspace(int(H * 0.4), H - 1, 64).astype(int)
-    entries = []
-    for sub in ('image_a6', 'newest_original_depth_maps'):
-        os.makedirs(os.path.join(root, 'seq', sub))
-    for i in range(n_frames):
-        stem = 'frame_{:04d}'.format(i)
-        write_image(os.path.join(root, 'seq', 'image_a6', stem + '.png'),
-                    rng.rand(H, W, 3).astype(np.float32))
-        depth = np.zeros((H, W), np.float32)
-        depth[rows] = (rng.rand(len(rows), W) * 13 + 1) * (
-            rng.rand(len(rows), W) < 0.2)
-        write_depth(os.path.join(root, 'seq', 'newest_original_depth_maps',
-                                 stem + '.png'), depth)
-        entries.append({'dataset_root': 'seq', 'new_filename': stem})
-    for name, idx in (splits or {'split.json': range(n_frames)}).items():
-        with open(os.path.join(root, name), 'w') as f:
-            json.dump([entries[i] for i in idx], f)
-    return os.path.join(root, 'seq', 'image_a6')
-
-
 def cli_phase(card, dev, reset_counts, read_counts):
     """Phase C: the eval and inference CLIs from a checkpoint and a tree on
     disk (see the module note). Returns the eval CLI's masked-conv
@@ -2239,6 +2211,7 @@ def cli_phase(card, dev, reset_counts, read_counts):
     from packnet_sfm_tpu_torch import infer as port_infer
     from packnet_sfm_tpu_torch.config import parse_test_file
     from packnet_sfm_tpu_torch.datasets.io import load_image
+    from packnet_sfm_tpu_torch.datasets.ncdb import write_ncdb_tree
     from torch.profiler import ProfilerActivity, profile
     from packnet_sfm_tpu_torch.datasets.transforms import resize_image
     from packnet_sfm_tpu_torch.ops.depth import (
@@ -2383,20 +2356,71 @@ class EpochRecorder:
         self.images += 1
 
 
+def overfit_step_check(overrides, batch):
+    """One float32 step of configs/overfit_synthetic.yaml under `overrides`
+    on `batch` (one batch of its train loader, on the card: the path's own
+    shapes) through the kernels, through every plain version under plain
+    autograd, and (the control) plain on the batch's images in reverse
+    order; the photometric maps in float32 too (on the path they are
+    bf16 plain code, no kernel). Held to the train step's limits; each of
+    the path's kernels must launch in the kernels' step. Returns the
+    readings."""
+    from packnet_sfm_tpu_torch import train as port_train
+    from packnet_sfm_tpu_torch.ops.kernels import san_conv, warp
+    _, model = port_train.build(OVERFIT_CONFIG, batch['rgb'].device, seed=0,
+                                overrides=overrides + [
+                                    'tpu.photometric_dtype', 'float32'])
+    kernels = {'san_fwd': san_conv.masked_conv2d,
+               'san_dgrad': san_conv.masked_conv2d_dgrad,
+               'warp_out': warp.warp_bilinear_out,
+               'warp_dgrid': warp.warp_bilinear_dgrid}
+    before = {k: fn.launches for k, fn in kernels.items()}
+    ((loss_k, gk),) = step_gradients(model, ((False, batch),))
+    launched = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    (loss_p, gp), (_, gr) = step_gradients(
+        model, ((True, batch), (True, reversed_batch(batch))))
+    del model
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_check = compare_grads(gk, gp)
+    order_check = compare_grads(gr, gp)
+    log('overfit step fp32 B{} {}x{} (FiLM, input depth, PoseNet over {} '
+        'contexts), kernels vs plain: loss {:.6f} vs {:.6f} (rel {:.2e}); '
+        'per gradient leaf max|err|/max|g| {:.3e} (at {}), |err|/|g| {:.3e}; '
+        'zero leaves {:.2e} of the largest gradient; launches {}. Plain vs '
+        'plain on the reversed batch: {:.3e} (at {}), {:.3e}, {:.2e}'.format(
+            *batch['rgb'].shape[:3], len(batch['rgb_context']), loss_k,
+            loss_p, loss_rel, *grad_check, launched, *order_check))
+    rel, _, norm, zero_leaf = grad_check
+    if loss_rel > TRAIN_LOSS_RTOL or rel > TRAIN_GRAD_REL or \
+            norm > TRAIN_GRAD_NORM or zero_leaf > 1e-6:
+        raise AssertionError('overfit step through the kernels disagrees '
+                             'with the plain versions')
+    if batch['rgb'].is_cuda and not all(launched.values()):
+        raise AssertionError('overfit step skipped a kernel: {}'.format(
+            launched))
+    return {'loss_rel': loss_rel, 'grad': grad_check, 'launches': launched,
+            'plain_reversed_batch_vs_plain': order_check}
+
+
 def train_disk_phase(card, reset_counts, read_counts):
     """Phase T: training from disk (see the module note). Returns
     {run: launch counts} of the runs through Trainer.fit."""
+    import pickle
     import shutil
     import tempfile
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from packnet_sfm_tpu_torch import train as port_train
-    from packnet_sfm_tpu_torch.config import parse_train_config
+    from packnet_sfm_tpu_torch.config import (
+        parse_train_config, parse_train_file)
+    from packnet_sfm_tpu_torch.datasets.loader import to_device_batch
+    from packnet_sfm_tpu_torch.datasets.ncdb import write_ncdb_tree
     from packnet_sfm_tpu_torch.datasets.transforms import TrainTransform
     from packnet_sfm_tpu_torch.trainers import trainer as trainer_mod
-    from packnet_sfm_tpu_torch.trainers.trainer import Trainer, make_loader
-    from packnet_sfm_tpu_torch.utils.checkpoint import load_checkpoint
+    from packnet_sfm_tpu_torch.trainers.trainer import (
+        Trainer, make_loader, seeded_model)
+    from packnet_sfm_tpu_torch.utils.checkpoint import load_weights
 
     summary = {'card': card, 'train_frames': TRAIN_FRAMES,
                'val_frames': VAL_FRAMES}
@@ -2412,12 +2436,15 @@ def train_disk_phase(card, reset_counts, read_counts):
                 run, got, want))
         launches[run] = got
 
-    def check_steps(run, trainer, steps):
-        if trainer.step != steps or trainer.optimizer.count != steps:
-            raise AssertionError('{}: {} steps, {} updates, expected {} '
-                                 '(a step skipped?)'.format(
+    def check_steps(run, trainer, steps, updates=None):
+        """`steps` steps run, and `updates` (by default `steps`) applied
+        by the optimizer: no loss skipped."""
+        updates = steps if updates is None else updates
+        if trainer.step != steps or trainer.optimizer.count != updates:
+            raise AssertionError('{}: {} steps, {} updates, expected {} and '
+                                 '{} (a step skipped?)'.format(
                                      run, trainer.step,
-                                     trainer.optimizer.count, steps))
+                                     trainer.optimizer.count, steps, updates))
 
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, 'ncdb')
@@ -2515,41 +2542,70 @@ def train_disk_phase(card, reset_counts, read_counts):
         del trainer
 
         # resume from the mid_epoch.ckpt of step 2 of epoch 1: exactly the
-        # 2 remaining steps, the validation and one quick eval
-        payload = load_checkpoint(kept['path'])
-        reset_counts()
-        resumed = port_train.fit(kept['path'], 'cuda', [
-            'checkpoint.filepath', os.path.join(tmp, 'resumed', '{epoch}')])
-        got = read_counts()
-        expect('resume', got, steps - payload['step'], 2 * VAL_FRAMES)
-        check_steps('resume', resumed, steps)
-        rel, worst, norm, _ = compare_grads(
-            {n: p.detach() for n, p in resumed.model.named_parameters()},
-            want_params)
-        summary['resume'] = {'from_step': payload['step'], 'max_rel': rel,
-                             'at': worst, 'norm_rel': norm}
-        log('resumed from mid_epoch.ckpt at step {} of {}: {} steps, '
-            'parameters vs the uninterrupted run per leaf max|err|/max|p| '
-            '{:.3e} (at {}), |err|/|p| {:.3e}'.format(
-                payload['step'], steps, steps - payload['step'], rel, worst,
-                norm))
-        if rel > RESUME_REL or norm > RESUME_NORM:
+        # 2 remaining steps, the validation and one quick eval. Its update
+        # (the parameters after the 2 steps less the checkpoint's) against
+        # the uninterrupted run's, per leaf at the train step's limits; the
+        # control resumes from the same file without its Adam state, which
+        # must fail that check
+        config, payload = parse_train_file(kept['path'])
+        start = {n: p.detach().to(want_params[n].device) for n, p in
+                 load_weights(seeded_model(config, 0),
+                              payload).named_parameters()}
+        want_update = {n: want_params[n] - start[n] for n in start}
+
+        def resume(path, run, updates):
+            reset_counts()
+            resumed = port_train.fit(path, 'cuda', [
+                'checkpoint.filepath', os.path.join(tmp, run, '{epoch}')])
+            got = read_counts()
+            expect(run, got, steps - payload['step'], 2 * VAL_FRAMES)
+            check_steps(run, resumed, steps, updates)
+            return compare_grads({n: p.detach() - start[n] for n, p in
+                                  resumed.model.named_parameters()},
+                                 want_update)
+
+        rel, worst, norm, zero = resume(kept['path'], 'resume', steps)
+        no_adam = os.path.join(tmp, 'kept_no_adam_state.ckpt')
+        with open(no_adam, 'wb') as f:
+            pickle.dump({k: v for k, v in payload.items()
+                         if k != 'adam_state'}, f)
+        # a fresh optimizer counts from 0
+        c_rel, c_worst, c_norm, c_zero = resume(no_adam, 'resume_control',
+                                                steps - payload['step'])
+        del launches['resume_control']
+        summary['resume'] = {
+            'from_step': payload['step'], 'update_max_rel': rel, 'at': worst,
+            'update_norm_rel': norm, 'zero_leaves': zero,
+            'control_without_adam_state': {
+                'update_max_rel': c_rel, 'at': c_worst,
+                'update_norm_rel': c_norm, 'zero_leaves': c_zero}}
+        log('resumed from mid_epoch.ckpt at step {} of {}: {} steps, its '
+            'update vs the uninterrupted run\'s per leaf max|err|/max|u| '
+            '{:.3e} (at {}), |err|/|u| {:.3e}, zero leaves {:.2e}; the '
+            'control without Adam state: {:.3e} (at {}), {:.3e}, '
+            '{:.2e}'.format(payload['step'], steps, steps - payload['step'],
+                            rel, worst, norm, zero, c_rel, c_worst, c_norm,
+                            c_zero))
+        if rel > TRAIN_GRAD_REL or norm > TRAIN_GRAD_NORM or zero > 1e-6:
             raise AssertionError('the resumed run disagrees with the '
                                  'uninterrupted one')
-        del resumed, want_params
+        if c_rel <= TRAIN_GRAD_REL and c_norm <= TRAIN_GRAD_NORM:
+            raise AssertionError('the resume check passes a resume that '
+                                 'dropped the Adam state')
+        del want_params, start, want_update
 
         # the overfit config through the same loop, PoseNet over 2 contexts;
         # as written it feeds no input depth and has no FiLM, so its depth
         # net runs no SAN branch: here the Synthetic frames carry their
         # sparse input depth and FiLM is on, which adds the masked convs
         logger = EpochRecorder()
+        overfit = ['model.depth_net.use_film', True,
+                   'datasets.train.input_depth_type', ['depth'],
+                   'datasets.validation.input_depth_type', ['depth']]
         reset_counts()
         over = port_train.fit(OVERFIT_CONFIG, 'cuda', [
-            'arch.max_epochs', OVERFIT_EPOCHS, 'checkpoint.filepath', '',
-            'model.depth_net.use_film', True,
-            'datasets.train.input_depth_type', ['depth'],
-            'datasets.validation.input_depth_type', ['depth']],
-            logger=logger)
+            'arch.max_epochs', OVERFIT_EPOCHS, 'checkpoint.filepath', ''] +
+            overfit, logger=logger)
         got = read_counts()
         loader = make_loader(over.config, 'train')
         n_val = len(make_loader(over.config, 'validation'))
@@ -2570,6 +2626,8 @@ def train_disk_phase(card, reset_counts, read_counts):
         if not (all(np.isfinite(o_losses)) and o_losses[-1] < o_losses[0]):
             raise AssertionError('overfit loss did not fall: {}'.format(
                 o_losses))
+        summary['overfit']['fp32_step'] = overfit_step_check(
+            overfit, to_device_batch(next(iter(loader)), over.device))
         del over
 
         # the rates: the YAML's loader (host jitter) and tpu.device_augment,

@@ -25,7 +25,8 @@ from pathlib import Path
 import numpy as np
 from PIL import Image
 
-from packnet_sfm_tpu_torch.datasets.io import load_image
+from packnet_sfm_tpu_torch.datasets.io import (
+    load_image, write_depth, write_image)
 
 DEFAULT_CALIB_A6 = {
     'model': 'vadas',
@@ -54,6 +55,39 @@ def resolve_depth_folder(depth_type):
     if base not in SUPPORTED_BASE_TYPES:
         raise ValueError('Unknown NCDB depth type {!r}'.format(depth_type))
     return 'newest_{}{}_maps'.format('original_' if original else '', base)
+
+
+def write_ncdb_tree(root, shape, n_frames, splits=None, rows=64, fill=0.2,
+                    seed=0):
+    """Write an NCDB-layout tree of `n_frames` synthetic frames at `shape`
+    (for tests and smoke runs): uniform RGB frames in <root>/seq/image_a6
+    and, in the depth_original folder that serves both the GT and the
+    LiDAR input, 16-bit depth of 1-14 m on `rows` beam rows from 40% of
+    the height down at `fill` azimuth fill; then the split files of
+    `splits` ({name: frame indices}; by default split.json, every frame).
+    Returns the image folder."""
+    rng = np.random.RandomState(seed)
+    H, W = shape
+    beams = np.linspace(int(H * 0.4), H - 1, rows).astype(int)
+    root = Path(root)
+    images = root / 'seq' / 'image_a6'
+    depths = root / 'seq' / resolve_depth_folder(DEFAULT_DEPTH_TYPE)
+    for folder in (images, depths):
+        folder.mkdir(parents=True, exist_ok=True)
+    entries = []
+    for i in range(n_frames):
+        stem = 'frame_{:04d}'.format(i)
+        write_image(str(images / (stem + '.png')),
+                    rng.rand(H, W, 3).astype(np.float32))
+        depth = np.zeros((H, W), np.float32)
+        depth[beams] = (rng.rand(rows, W) * 13 + 1) * (
+            rng.rand(rows, W) < fill)
+        write_depth(str(depths / (stem + '.png')), depth)
+        entries.append({'dataset_root': 'seq', 'new_filename': stem})
+    for name, idx in (splits or {'split.json': range(n_frames)}).items():
+        with open(root / name, 'w') as f:
+            json.dump([entries[i] for i in idx], f)
+    return str(images)
 
 
 def load_depth_png(path):

@@ -8,7 +8,9 @@ validation, the per-epoch eval JSON, the logger's metrics and images, the
 top-k checkpoints, and the removal of the stale `mid_epoch.ckpt`. Inside an
 epoch: the rolling loss at the 10% marks, a `mid_epoch.ckpt` with the
 loader position every `checkpoint.save_every_n_steps`, a `quick_eval` every
-`arch.eval_progress_interval`, the StepTimer breakdown. The loss is read on
+`arch.eval_progress_interval`, the StepTimer breakdown (data wait against
+step time; unlike the JAX loop, which books the saves and evals between
+steps as data wait, it books them to neither). The loss is read on
 the host only by the step's non-finite guard, at the 10% marks and for the
 epoch mean. Each step's random draws (the lr-flip, `tpu.device_augment`'s
 jitter factors) come from a generator seeded by (arch.seed, epoch, batch
@@ -466,6 +468,8 @@ class Trainer:
             if eval_every and val_loader is not None and b > 0 and \
                     b % eval_every == 0:
                 self.quick_eval(val_loader, b, n)
+            # the prints, saves and evals are neither data wait nor step
+            timer.restart()
         mean_loss = float(torch.stack(losses).mean()) if losses else 0.0
         wall = time.perf_counter() - t0
         prof = timer.summary()

@@ -7,7 +7,9 @@ import time
 
 class StepTimer:
     """Accumulates data-wait and step wall time over an epoch. Call
-    `data_ready` when a batch is in hand and `step_done` after its step."""
+    `data_ready` when a batch is in hand and `step_done` after its step;
+    `restart` after other work between steps (a checkpoint write, an
+    eval), which then counts as neither."""
 
     def __init__(self):
         self.data_time = 0.0
@@ -25,6 +27,9 @@ class StepTimer:
         self.step_time += now - self._mark
         self._mark = now
         self.steps += 1
+
+    def restart(self):
+        self._mark = time.perf_counter()
 
     def summary(self):
         n = max(self.steps, 1)

@@ -26,10 +26,10 @@ import pytest
 import torch
 
 from packnet_sfm_tpu_torch import train as port_train
+from packnet_sfm_tpu_torch.datasets.ncdb import write_ncdb_tree
 from packnet_sfm_tpu_torch.utils.checkpoint import load_checkpoint
 from tests.torch_fixtures import (  # noqa: F401
-    CONFIG, ckpt_files, ncdb_train_overrides, one_torch_thread,
-    write_ncdb_splits)
+    CONFIG, ckpt_files, ncdb_splits, ncdb_train_overrides, one_torch_thread)
 
 pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
@@ -38,7 +38,8 @@ SHAPE = (64, 96)
 
 
 def test_train_cli_from_disk_checkpoints_and_resumes(tmp_path):
-    root = write_ncdb_splits(str(tmp_path / 'ncdb'), SHAPE, 4, 2)
+    root = str(tmp_path / 'ncdb')
+    write_ncdb_tree(root, SHAPE, 6, ncdb_splits(4, 2), rows=16, fill=0.3)
     ck = tmp_path / 'ckpts'
     over = ncdb_train_overrides(root, SHAPE) + [
         'arch.max_epochs', 2, 'arch.eval_progress_interval', 0.5,

@@ -53,6 +53,7 @@ from packnet_sfm_tpu.utils.checkpoint import (
     ModelCheckpoint as JModelCheckpoint, load_checkpoint as j_load)
 from packnet_sfm_tpu_torch.config import parse_train_config, parse_train_file
 from packnet_sfm_tpu_torch.datasets import setup_dataset
+from packnet_sfm_tpu_torch.datasets.ncdb import write_ncdb_tree
 from packnet_sfm_tpu_torch.models.factory import setup_model
 from packnet_sfm_tpu_torch.networks.layers import san as tsan
 from packnet_sfm_tpu_torch.parallel.train_step import (
@@ -63,8 +64,8 @@ from packnet_sfm_tpu_torch.utils.checkpoint import (
     ModelCheckpoint, adam_state, load_checkpoint)
 from packnet_sfm_tpu_torch.utils.flax_weights import flax_state_dict
 from tests.torch_fixtures import (  # noqa: F401
-    CONFIG, OVERFIT, RecordingTrainer, ckpt_files, ncdb_train_overrides,
-    one_torch_thread, write_ncdb_splits)
+    CONFIG, OVERFIT, RecordingTrainer, ckpt_files, ncdb_splits,
+    ncdb_train_overrides, one_torch_thread)
 
 pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
@@ -251,7 +252,8 @@ def test_model_checkpoint_keeps_the_files_jax_keeps(tmp_path, monitor,
 
 
 def test_row_window_calibration_matches_jax(tmp_path):
-    root = write_ncdb_splits(str(tmp_path / 'ncdb'), (192, 64), 4, 1)
+    root = str(tmp_path / 'ncdb')
+    write_ncdb_tree(root, (192, 64), 5, ncdb_splits(4, 1), rows=16, fill=0.3)
     over = ncdb_train_overrides(root, (192, 64)) + [
         'model.depth_net.san_row_window', -1.0]
     jcfg, tcfg = j_parse(CONFIG, list(over)), parse_train_config(

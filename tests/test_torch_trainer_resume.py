@@ -33,6 +33,7 @@ from packnet_sfm_tpu.trainers.trainer import _to_device_batch
 from packnet_sfm_tpu_torch.config import parse_train_config, parse_train_file
 from packnet_sfm_tpu_torch.trainers import trainer as trainer_mod
 from packnet_sfm_tpu_torch.trainers.trainer import Trainer
+from packnet_sfm_tpu_torch.utils import profiling
 from packnet_sfm_tpu_torch.utils.checkpoint import load_checkpoint
 from tests.torch_fixtures import (  # noqa: F401
     OVERFIT, RecordingTrainer, ckpt_files, one_torch_thread)
@@ -128,3 +129,29 @@ def test_jax_reads_a_port_checkpoint(port_run, capsys):
     assert state['epoch'] == 0 and jt.current_epoch == 0
 
 
+
+
+def test_saves_and_quick_evals_are_not_data_wait(tmp_path, monkeypatch):
+    """train_epoch books its mid-epoch saves and quick evals to neither the
+    data wait nor the step: on a StepTimer clock that only they advance,
+    both stay 0 (a save after every step, a quick eval after steps 1-3)."""
+    clock = [0.0]
+
+    def slow(*args, **kwargs):
+        clock[0] += 100.0
+
+    monkeypatch.setattr(profiling, 'time', types.SimpleNamespace(
+        perf_counter=lambda: clock[0]))
+    monkeypatch.setattr(trainer_mod, 'save_checkpoint', slow)
+    cfg = parse_train_config(OVERFIT, [
+        'checkpoint.filepath', str(tmp_path / 'ckpts'),
+        'checkpoint.save_every_n_steps', 1, 'arch.eval_during_training',
+        True, 'arch.eval_progress_interval', 0.25])
+    trainer = Trainer(cfg, device='cpu')
+    monkeypatch.setattr(trainer, 'quick_eval', slow)
+    monkeypatch.setattr(trainer, '_run_step',
+                        lambda batch, epoch, index, n: torch.tensor(1.0))
+    out = trainer.train_epoch(trainer_mod.make_loader(cfg, 'train'),
+                              object(), 0)
+    assert clock[0] == 100.0 * (4 + 3)
+    assert out['data_ms_per_step'] == out['step_ms_per_step'] == 0.0

@@ -83,41 +83,16 @@ def write_jax_checkpoint(path, ncdb_root, seed=4):
     return variables
 
 
-def write_ncdb_splits(root, shape, n_train, n_val, seed=0):
-    """An NCDB-layout tree at `shape` written with the port's writers:
-    uniform RGB frames and, in the depth_original folder that serves as GT
-    and LiDAR input, depth of 1-14 m on 16 beam rows from 40% of the height
-    down at 30% azimuth fill; 'train.json' lists the first `n_train`
-    frames and 'val.json' the next `n_val`. Returns `root`."""
-    import json
-    import os
-    from packnet_sfm_tpu_torch.datasets.io import write_depth, write_image
-    rng = np.random.RandomState(seed)
-    H, W = shape
-    rows = np.linspace(int(H * 0.4), H - 1, 16).astype(int)
-    for sub in ('image_a6', 'newest_original_depth_maps'):
-        os.makedirs(os.path.join(root, 'seq', sub), exist_ok=True)
-    entries = []
-    for i in range(n_train + n_val):
-        stem = 'frame_{:04d}'.format(i)
-        write_image(os.path.join(root, 'seq', 'image_a6', stem + '.png'),
-                    rng.rand(H, W, 3).astype(np.float32))
-        depth = np.zeros((H, W), np.float32)
-        depth[rows] = (rng.rand(len(rows), W) * 13 + 1) * (
-            rng.rand(len(rows), W) < 0.3)
-        write_depth(os.path.join(root, 'seq', 'newest_original_depth_maps',
-                                 stem + '.png'), depth)
-        entries.append({'dataset_root': 'seq', 'new_filename': stem})
-    for name, part in (('train.json', entries[:n_train]),
-                       ('val.json', entries[n_train:])):
-        with open(os.path.join(root, name), 'w') as f:
-            json.dump(part, f)
-    return root
+def ncdb_splits(n_train, n_val):
+    """The split files of a `write_ncdb_tree` tree of n_train + n_val
+    frames: 'train.json' the first `n_train`, 'val.json' the rest."""
+    return {'train.json': range(n_train),
+            'val.json': range(n_train, n_train + n_val)}
 
 
 def ncdb_train_overrides(root, shape, batch_size=2):
     """Overrides that point the NCDB YAML's train and validation splits at
-    a `write_ncdb_splits` tree and cut them to CPU size (float32 convs)."""
+    a `write_ncdb_tree` tree with `ncdb_splits` and cut them to CPU size (float32 convs)."""
     return ['tpu.compute_dtype', 'float32',
             'datasets.augmentation.image_shape', tuple(shape),
             'datasets.train.path', [root], 'datasets.train.split',
