@@ -133,6 +133,27 @@ it, with nothing of JAX:
    without validation: img/s with data, data and step ms a step, the
    input-bound fraction; and the host's read-and-decode and train
    transform ms a sample on one thread, with and without the jitter;
+   then the dual-head INT8 slice (phase D): an NCDB-layout tree of 16
+   train and 4 validation frames at 384x640, train.fit on the dual-head
+   YAML at its B8 bf16 under model.params.qat 'weights+outputs' (2 epochs
+   of 2 steps, validated on the int8 weights, a checkpoint an epoch): 30
+   forward masked-conv launches a step (the RGB+D pass, whose output no
+   loss reads) and 0 dgrad, 30 a validation frame and 30 for the logged
+   images' forward (a dual-head model logs none); its rate with data
+   beside the same fit without QAT, the step alone under both on a batch
+   held on the card, and the kernels the card runs a step under each
+   (what QAT adds); one float32 step of that model under QAT on a batch of
+   the loader through the kernels against the plain versions at the train
+   step's limits (the reversed batch as the control), the SAN's
+   MaskedBatchNorm statistics after it (where the kernel's output lands)
+   and the loss heads' u8 codes (at most one step apart); the int8
+   fake-quantized depth-net kernels on the card against the CPU's, bit
+   for bit; eval.test --int8 --int8-weights on the fit's checkpoint over
+   the validation frames with LiDAR (30 launches a frame) beside the
+   float eval (the INT8 abs_rel cost), and in float32 through the kernels
+   against the plain versions (atol 1e-4 over the metrics); infer.py on
+   two frames, its depth (integer * max_depth + fractional) against the
+   eval forward's; chiprun_out/chip_smoke_dual_head.json;
 4. (d) time eval img/s at B1 and the train step and img/s at B8, the
    forward kernel at the eval shapes and both kernels at the train shapes
    beside their plain versions, the library yardstick (one cuDNN call the
@@ -161,8 +182,9 @@ it, with nothing of JAX:
 Run with no arguments: `python3 chip_smoke.py`. Exits nonzero without a
 card. Extra output goes to chiprun_out/chip_smoke_convs.json,
 chiprun_out/chip_smoke_selfsup.json, chiprun_out/chip_smoke_generic.json,
-chiprun_out/chip_smoke_gather.json, chiprun_out/chip_smoke_cli.json and
-chiprun_out/chip_smoke_train_disk.json.
+chiprun_out/chip_smoke_gather.json, chiprun_out/chip_smoke_cli.json,
+chiprun_out/chip_smoke_train_disk.json and
+chiprun_out/chip_smoke_dual_head.json.
 """
 
 import contextlib
@@ -213,6 +235,14 @@ TRAIN_FRAMES, VAL_FRAMES = 32, 8       # frames of the phase T tree
 DISK_EPOCHS = 2                        # epochs of the phase T run
 OVERFIT_CONFIG = 'configs/overfit_synthetic.yaml'
 OVERFIT_EPOCHS = 3
+DUAL_CONFIG = 'configs/train_resnet_san_ncdb_dual_head_640x384.yaml'
+DUAL_TRAIN_FRAMES, DUAL_VAL_FRAMES = 16, 4   # frames of the phase D tree
+DUAL_EPOCHS = 2                        # epochs of the phase D runs
+# the SAN's MaskedBatchNorm statistics after one float32 QAT step, kernels
+# against plain versions: max|err| / max|value| per leaf. They are means
+# and variances of the masked convs' outputs, which the kernels give
+# within atol = rtol = 1e-4 of the plain version
+DUAL_STATS_REL = 1e-3
 # fp32 adds: one instruction a lane a clock, 128 lanes an SM, 132 SMs at
 # 1.98 GHz (the 67 TFLOP/s peak counts an FMA as two)
 H100_FP32_ADDS_PER_S = 132 * 128 * 1.98e9
@@ -875,6 +905,12 @@ def main():
                     row['launches'] += got[key]
                     row['launches_by_path'][path] = got[key]
 
+    # ---------------------------------------------------------------- D
+    dual_launches = dual_head_phase(card, dev, reset_counts, read_counts)
+    for got in dual_launches.values():
+        counts['fwd'] += got['san_fwd']
+        counts['dgrad'] += got['san_dgrad']
+
     # ---------------------------------------------------------------- 4
     step = make_eval_step(model)
     fwd_ms = cuda_time_ms(lambda: step(batch), iters=20)
@@ -983,7 +1019,9 @@ def main():
                              'selfsup': selfsup_launches['san_fwd'],
                              'eval_cli': cli_launches,
                              **{k: v['san_fwd']
-                                for k, v in disk_launches.items()}},
+                                for k, v in disk_launches.items()},
+                             **{k: v['san_fwd']
+                                for k, v in dual_launches.items()}},
         'reduce_launches': reduce_totals['san_fwd'],
         'max_abs_err': max_err['float32'],
         'max_abs_err_bf16': max_err['bfloat16'],
@@ -1006,7 +1044,9 @@ def main():
         'launches_by_path': {'train': train_dgrad,
                              'selfsup': selfsup_launches['san_dgrad'],
                              **{k: v['san_dgrad']
-                                for k, v in disk_launches.items()}},
+                                for k, v in disk_launches.items()},
+                             **{k: v['san_dgrad']
+                                for k, v in dual_launches.items()}},
         'reduce_launches': reduce_totals['san_dgrad'],
         'max_abs_err': dmax_err['float32'],
         'max_abs_err_bf16': dmax_err['bfloat16'],
@@ -1046,9 +1086,15 @@ def profile_step_kernels(trainer, batch):
 
 
 def reversed_batch(batch):
-    """The batch's images in reverse order (lists of frames too)."""
-    return {k: [c.flip(0) for c in v] if isinstance(v, list) else v.flip(0)
-            for k, v in batch.items()}
+    """The batch's samples in reverse order (lists of frames and dicts of
+    tensors too; other values as they are)."""
+    def rev(v):
+        if isinstance(v, list):
+            return [rev(c) for c in v]
+        if isinstance(v, dict):
+            return {k: rev(c) for k, c in v.items()}
+        return v.flip(0) if hasattr(v, 'flip') else v
+    return {k: rev(v) for k, v in batch.items()}
 
 
 def edge_grid(B, Ho, Wo, H, W, gen):
@@ -2714,6 +2760,361 @@ def train_disk_phase(card, reset_counts, read_counts):
                                    host['transform_no_jitter_ms'], card))
     summary['launches'] = launches
     with open('chiprun_out/chip_smoke_train_disk.json', 'w') as f:
+        json.dump(summary, f, indent=1)
+    return launches
+
+
+def san_conv_counts():
+    """The masked-conv kernels' launch counts, by the kernels line's keys."""
+    from packnet_sfm_tpu_torch.ops.kernels import san_conv
+    return {'san_fwd': san_conv.masked_conv2d.launches,
+            'san_dgrad': san_conv.masked_conv2d_dgrad.launches}
+
+
+def qat_step_readings(model, batch, plain):
+    """One float32 step of a dual-head `model` under QAT on weights and
+    outputs (the train step's forward: the model over its int8
+    fake-quantized depth-net kernels, parallel/train_step.py) on `batch`,
+    through the kernels or (plain) through every plain version under
+    plain autograd, from the model's current statistics, which it puts
+    back after: (loss, gradients by leaf, the SAN's MaskedBatchNorm
+    statistics after the step, the loss heads' u8 codes)."""
+    import torch
+    from packnet_sfm_tpu_torch.ops.quantization import (
+        fake_quant_u8, quantize_depth_net_params)
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+    model.train()
+    model.zero_grad(set_to_none=True)
+    with plain_versions() if plain else contextlib.nullcontext():
+        out = torch.func.functional_call(
+            model, quantize_depth_net_params(model), (batch,))
+        out['loss'].backward()
+    grads = {n: p.grad.detach().clone() if p.grad is not None
+             else torch.zeros_like(p) for n, p in model.named_parameters()}
+    stats = {k: v.detach().clone() for k, v in model.named_buffers()
+             if k.startswith('depth_net.mconvs.') and
+             k.endswith(('.mean', '.var'))}
+    codes = {k: torch.round(fake_quant_u8(out[(k, 0)].detach()) * 255.0)
+             for k in ('integer', 'fractional')}
+    loss = float(out['loss'].detach())
+    with torch.no_grad():
+        for k, v in model.named_buffers():
+            v.copy_(buffers[k])
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    return loss, grads, stats, codes
+
+
+def stats_rel(got, want):
+    """max over leaves of max|got - want| / max|want|, and the leaf."""
+    worst, at = 0.0, ''
+    for k, w in want.items():
+        err = float((got[k] - w).abs().max()) / max(float(w.abs().max()),
+                                                    1e-30)
+        if err > worst:
+            worst, at = err, k
+    return worst, at
+
+
+def dual_step_rate(qat, batch, n_timed=5):
+    """(ms a step, kernels the card runs a step) of the dual-head YAML's
+    train step (B8 384x640 bf16) on a batch held on the card, under
+    model.params.qat `qat`: 2 steps of warm-up, `n_timed` timed, one
+    more under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from packnet_sfm_tpu_torch import train as port_train
+    run = port_train.main(DUAL_CONFIG, batch['rgb'].device, n_steps=2,
+                          seed=0,
+                          overrides=['model.params.qat', qat],
+                          batches=[batch])
+    step = run['trainer'].train_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n_timed
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+    kernels = sum(1 for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return ms, kernels
+
+
+def dual_head_phase(card, dev, reset_counts, read_counts):
+    """Phase D: the dual-head INT8 slice (see the module note). Returns
+    {run: launch counts} of the runs through the entry points."""
+    import copy
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from packnet_sfm_tpu_torch import eval as port_eval
+    from packnet_sfm_tpu_torch import infer as port_infer
+    from packnet_sfm_tpu_torch import train as port_train
+    from packnet_sfm_tpu_torch.config import (
+        parse_test_file, parse_train_config)
+    from packnet_sfm_tpu_torch.datasets.io import load_image
+    from packnet_sfm_tpu_torch.datasets.loader import to_device_batch
+    from packnet_sfm_tpu_torch.datasets.ncdb import write_ncdb_tree
+    from packnet_sfm_tpu_torch.datasets.transforms import resize_image
+    from packnet_sfm_tpu_torch.models.factory import setup_model
+    from packnet_sfm_tpu_torch.ops.depth import dual_head_to_depth
+    from packnet_sfm_tpu_torch.ops.quantization import (
+        quantize_depth_net_params)
+    from packnet_sfm_tpu_torch.parallel.train_step import make_eval_step
+    from packnet_sfm_tpu_torch.trainers.trainer import Trainer, make_loader
+    from packnet_sfm_tpu_torch.utils.checkpoint import load_weights
+
+    yaml = parse_train_config(DUAL_CONFIG)
+    shape = tuple(yaml.datasets.augmentation.image_shape)
+    bs = int(yaml.datasets.train.batch_size)
+    summary = {'card': card, 'train_frames': DUAL_TRAIN_FRAMES,
+               'val_frames': DUAL_VAL_FRAMES, 'shape': list(shape),
+               'batch': bs}
+    launches = {}
+    qat = ['model.params.qat', 'weights+outputs']
+
+    def expect(run, got, steps, forwards):
+        want = dict.fromkeys(got, 0)
+        want['san_fwd'] = CONVS_PER_FORWARD * (steps + forwards)
+        if got != want:
+            raise AssertionError('{}: launches {}, expected {}'.format(
+                run, got, want))
+        launches[run] = got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, 'ncdb')
+        n = DUAL_TRAIN_FRAMES + DUAL_VAL_FRAMES
+        frames = write_ncdb_tree(root, shape, n, splits={
+            'train.json': range(DUAL_TRAIN_FRAMES),
+            'val.json': range(DUAL_TRAIN_FRAMES, n)})
+        data = ['datasets.train.path', [root],
+                'datasets.train.split', ['train.json'],
+                'datasets.validation.path', [root],
+                'datasets.validation.split', ['val.json'],
+                'datasets.validation.input_depth_type', ['depth_original'],
+                'arch.eval_during_training', False]
+        ck = os.path.join(tmp, 'ckpts')
+
+        # the path: train.py's entry on the dual-head YAML under QAT on
+        # weights and outputs, validated on the int8 weights each epoch;
+        # a step runs the SAN once (the RGB+D pass) and no gradient
+        # reaches it: no dgrad launch
+        logger = EpochRecorder()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = port_train.fit(DUAL_CONFIG, dev, data + qat + [
+            'arch.max_epochs', DUAL_EPOCHS, 'checkpoint.filepath', ck],
+            logger=logger)
+        torch.cuda.synchronize()
+        summary['fit_s'] = time.perf_counter() - t0
+        got = read_counts()
+        steps_per_epoch = DUAL_TRAIN_FRAMES // bs
+        steps = DUAL_EPOCHS * steps_per_epoch
+        # a validation forward a frame (B1) and, each epoch, the logged
+        # images' forward (a dual-head model then logs nothing)
+        expect('dual_head_train', got, steps,
+               DUAL_EPOCHS * (DUAL_VAL_FRAMES + 1))
+        losses = [logger.history[e]['train/loss'] for e in range(DUAL_EPOCHS)]
+        if trainer.step != steps or trainer.optimizer.count != steps or \
+                not all(np.isfinite(losses)) or logger.images:
+            raise AssertionError('dual-head fit: {} steps, {} updates, '
+                                 'losses {}, {} image sets'.format(
+                                     trainer.step, trainer.optimizer.count,
+                                     losses, logger.images))
+        run_dir = os.path.dirname(trainer.config.checkpoint.filepath)
+        ckpts = sorted(f for f in os.listdir(run_dir) if f.endswith('.ckpt'))
+        if len(ckpts) != DUAL_EPOCHS:
+            raise AssertionError('dual-head checkpoints: {}'.format(ckpts))
+        ckpt = os.path.join(run_dir, ckpts[-1])
+        rates = {'weights+outputs': logger.history[DUAL_EPOCHS - 1]}
+        summary['fit'] = {'losses': losses, 'checkpoints': ckpts,
+                          'val_abs_rel': [logger.history[e]['val/abs_rel']
+                                          for e in range(DUAL_EPOCHS)]}
+        log('dual head, train.fit B{} {}x{} {} under QAT weights+outputs: '
+            '{} epochs of {} steps in {:.1f} s, launches {} forward / {} '
+            'dgrad (a step: {} forward, 0 dgrad), epoch losses {}, val '
+            'abs_rel on the int8 weights {}'.format(
+                bs, shape[0], shape[1], yaml.tpu.compute_dtype,
+                DUAL_EPOCHS, steps_per_epoch, summary['fit_s'],
+                got['san_fwd'], got['san_dgrad'], CONVS_PER_FORWARD,
+                ['{:.4f}'.format(v) for v in losses],
+                ['{:.4f}'.format(v) for v in summary['fit']['val_abs_rel']]))
+        batch = to_device_batch(next(iter(make_loader(trainer.config,
+                                                      'train'))), dev)
+        del trainer
+
+        # the rate with data without QAT (same loader, no validation)
+        cfg = parse_train_config(DUAL_CONFIG, data + [
+            'arch.max_epochs', DUAL_EPOCHS, 'checkpoint.filepath', ''])
+        cfg.datasets.validation.dataset = []
+        logger = EpochRecorder()
+        Trainer(cfg, logger=logger, device=dev).fit()
+        rates[''] = logger.history[DUAL_EPOCHS - 1]
+        alone = {q: dual_step_rate(q, batch) for q in ('', 'weights+outputs')}
+        summary['rates'] = {q: {
+            'img_per_s_with_data': rates[q]['train/img_per_s'],
+            'data_ms_per_step': rates[q]['train/data_ms_per_step'],
+            'step_ms_per_step': rates[q]['train/step_ms_per_step'],
+            'step_alone_ms': alone[q][0],
+            'img_per_s_step_alone': bs * 1e3 / alone[q][0],
+            'device_kernels_a_step': alone[q][1]} for q in alone}
+        for q, r in summary['rates'].items():
+            log('dual head B{} {}x{} {}, qat {!r}: {:.2f} img/s with data '
+                '(epoch {}: data {:.1f} ms | step {:.1f} ms a step), the step '
+                'alone {:.2f} ms = {:.2f} img/s, {} kernels on the card a '
+                'step; {}'.format(bs, shape[0], shape[1],
+                                  yaml.tpu.compute_dtype, q,
+                                  r['img_per_s_with_data'],
+                                  DUAL_EPOCHS - 1, r['data_ms_per_step'],
+                                  r['step_ms_per_step'], r['step_alone_ms'],
+                                  r['img_per_s_step_alone'],
+                                  r['device_kernels_a_step'], card))
+        added = summary['rates']['weights+outputs'][
+            'device_kernels_a_step'] - summary['rates']['']['device_kernels_a_step']
+        summary['qat_added_kernels_a_step'] = added
+        log('QAT on weights and outputs adds {} kernels a step (the '
+            'per-channel weight quantizer over the depth net\'s kernels and '
+            'the u8 output quantizer, forward and backward)'.format(added))
+
+        # one float32 step under QAT at B8 384x640 through the kernels
+        # against the plain versions, with the reversed batch as control;
+        # the kernel's output lands only in the SAN's MaskedBatchNorm
+        # statistics (the RGB+D pass feeds no loss), compared too, and the
+        # loss heads' u8 codes
+        _, fmodel = port_train.build(DUAL_CONFIG, dev, seed=0, overrides=[
+            'tpu.compute_dtype', 'float32'] + qat)
+        before = san_conv_counts()
+        k_loss, gk, sk, ck_codes = qat_step_readings(fmodel, batch, False)
+        launched = {k: v - before[k] for k, v in san_conv_counts().items()}
+        p_loss, gp, sp, cp_codes = qat_step_readings(fmodel, batch, True)
+        _, gr, sr, _ = qat_step_readings(fmodel, reversed_batch(batch), True)
+        loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+        grad_check = compare_grads(gk, gp)
+        order_check = compare_grads(gr, gp)
+        stat_check = stats_rel(sk, sp)
+        stat_order = stats_rel(sr, sp)
+        flips = {k: int((ck_codes[k] != cp_codes[k]).sum())
+                 for k in ck_codes}
+        max_step = max(float((ck_codes[k] - cp_codes[k]).abs().max())
+                       for k in ck_codes)
+        summary['fp32_qat_step'] = {
+            'loss_rel': loss_rel, 'grad': grad_check, 'launches': launched,
+            'plain_reversed_batch_vs_plain': order_check,
+            'san_stats_rel': stat_check, 'san_stats_reversed': stat_order,
+            'u8_codes_differing': flips, 'u8_max_code_step': max_step}
+        log('dual-head QAT step fp32 B{} {}x{}, kernels vs plain: loss '
+            '{:.6f} vs {:.6f} (rel {:.2e}); per gradient leaf max|err|/max|g| '
+            '{:.3e} (at {}), |err|/|g| {:.3e}, zero leaves {:.2e}; launches '
+            '{}; SAN MaskedBatchNorm statistics max|err|/max {:.3e} (at {}); '
+            'u8 codes differing {} (at most {} step). Plain vs plain on the '
+            'reversed batch: {:.3e} (at {}), {:.3e}, {:.2e}; statistics '
+            '{:.3e}'.format(bs, shape[0], shape[1], k_loss, p_loss, loss_rel,
+                            *grad_check, launched,
+                            *stat_check, flips, max_step, *order_check,
+                            stat_order[0]))
+        rel, _, norm, zero = grad_check
+        if loss_rel > TRAIN_LOSS_RTOL or rel > TRAIN_GRAD_REL or \
+                norm > TRAIN_GRAD_NORM or zero > 1e-6 or \
+                stat_check[0] > DUAL_STATS_REL or max_step > 1 or \
+                launched != {'san_fwd': CONVS_PER_FORWARD, 'san_dgrad': 0}:
+            raise AssertionError('the dual-head QAT step through the kernels '
+                                 'disagrees with the plain versions')
+
+        # the int8 weights on the card equal the CPU's bit for bit
+        q_card = quantize_depth_net_params(fmodel)
+        q_cpu = quantize_depth_net_params(copy.deepcopy(fmodel).cpu())
+        differ = [k for k in q_card if not torch.equal(q_card[k].cpu(),
+                                                       q_cpu[k])]
+        summary['int8_weights_card_vs_cpu'] = {'kernels': len(q_card),
+                                               'differing': differ}
+        log('int8 fake-quantized depth-net kernels, card vs CPU: {} of {} '
+            'differ'.format(len(differ), len(q_card)))
+        if differ or not q_card:
+            raise AssertionError('int8 weights differ on the card: {}'.format(
+                differ))
+        del fmodel, q_card, q_cpu
+
+        # the eval CLI with --int8 --int8-weights on the fit's checkpoint,
+        # on the validation frames with LiDAR; float32 through the kernels
+        # and through the plain versions; the float eval beside it
+        over = ['datasets.test.path', [root], 'datasets.test.split',
+                ['val.json'], 'datasets.test.input_depth_type',
+                ['depth_original']]
+        reset_counts()
+        int8 = port_eval.test(ckpt, int8=True, int8_weights=True,
+                              device=dev, overrides=over)
+        got = read_counts()
+        expect('dual_head_eval', got, 0, DUAL_VAL_FRAMES)
+        # the float eval: a QAT-on-weights model is otherwise validated on
+        # its int8 weights
+        fp = port_eval.test(ckpt, device=dev,
+                            overrides=over + ['model.params.qat', ''])
+        cost = int8['depth-abs_rel'] - fp['depth-abs_rel']
+        f32 = over + ['tpu.compute_dtype', 'float32']
+        k8 = port_eval.test(ckpt, int8=True, int8_weights=True, device=dev,
+                            overrides=f32)
+        with plain_versions():
+            p8 = port_eval.test(ckpt, int8=True, int8_weights=True,
+                                device=dev, overrides=f32)
+        err = max(abs(k8[k] - p8[k]) for k in p8)
+        summary['int8_eval'] = {'int8': dict(int8), 'float': dict(fp),
+                                'int8_abs_rel_cost': cost,
+                                'fp32_kernels_vs_plain_max_err': err}
+        for name, m in (('int8', int8), ('float', fp), ('fp32 int8', k8)):
+            if len(m) != 2 * 7 + 1 or m.skipped or not all(
+                    np.isfinite(v) for v in m.values()):
+                raise AssertionError('dual-head {} eval: {}'.format(name, m))
+        log('dual-head eval CLI --int8 --int8-weights ({} frames with LiDAR, '
+            '{}): abs_rel {:.4f}, float {:.4f}: the INT8 cost {:+.4f} '
+            'abs_rel; {} masked-conv launches; fp32 through the kernels vs '
+            'the plain versions max |err| {:.3e} over the metrics'.format(
+                DUAL_VAL_FRAMES, yaml.tpu.compute_dtype,
+                int8['depth-abs_rel'], fp['depth-abs_rel'],
+                cost, got['san_fwd'], err))
+        if sorted(k8) != sorted(p8) or err > 1e-4:
+            raise AssertionError('int8 eval through the kernels disagrees '
+                                 'with the plain versions')
+
+        # the inference CLI on two frames with the dual-head checkpoint: RGB
+        # only, no kernel launch; its depth against the eval forward's
+        two = os.path.join(tmp, 'two')
+        os.makedirs(two)
+        names = sorted(os.listdir(frames))[:2]
+        for name in names:
+            shutil.copy(os.path.join(frames, name), two)
+        out_dir = os.path.join(tmp, 'infer')
+        reset_counts()
+        port_infer.infer_and_save_depth(ckpt, two, out_dir, image_shape=shape,
+                                        save=('npz',), device=dev)
+        got = read_counts()
+        if any(got.values()):
+            raise AssertionError('infer CLI launched kernels: {}'.format(got))
+        config, state = parse_test_file(ckpt)
+        model = load_weights(setup_model(config), state).to(dev).eval()
+        forward = make_eval_step(model)
+        derr = 0.0
+        for name in names:
+            rgb = resize_image(load_image(os.path.join(two, name)), shape)
+            out = forward({'rgb': torch.from_numpy(rgb[None]).to(dev)})
+            want = dual_head_to_depth(out[('integer', 0)],
+                                      out[('fractional', 0)],
+                                      config.model.params.max_depth)[0, ..., 0]
+            saved = torch.from_numpy(np.load(os.path.join(
+                out_dir, name[:-4] + '.npz'))['depth'])
+            torch.testing.assert_close(saved, want.float().cpu(), rtol=1e-5,
+                                       atol=0)
+            derr = max(derr, float((saved - want.float().cpu()).abs().max()))
+        summary['infer_vs_forward_max_err_m'] = derr
+        log('dual-head infer CLI on {} frames: depth = integer * {} + '
+            'fractional, vs the eval forward max |err| {:.2e} m, 0 kernel '
+            'launches'.format(len(names), config.model.params.max_depth, derr))
+    summary['launches'] = launches
+    with open('chiprun_out/chip_smoke_dual_head.json', 'w') as f:
         json.dump(summary, f, indent=1)
     return launches
 

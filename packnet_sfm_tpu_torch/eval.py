@@ -2,7 +2,8 @@
 Depth-completion evaluation entry points of the PyTorch port.
 
     python -m packnet_sfm_tpu_torch.eval --checkpoint model.ckpt \
-        [--config cfg.yaml] [--half] [--save_folder dir] [KEY VALUE ...]
+        [--config cfg.yaml] [--half] [--int8] [--int8-weights] \
+        [--save_folder dir] [KEY VALUE ...]
 
 `test` is the JAX package's scripts/eval.py: the model and its config from
 a checkpoint (the JAX package's format), the optional YAML and KEY VALUE
@@ -117,12 +118,12 @@ def test(ckpt_file, cfg_file=None, half=False, int8=False, save_folder='',
     its datasets as one loader) and return the trainer's Metrics
     (`.skipped` counts the batches that failed). `cfg_file` is a YAML and
     `overrides` a flat ['a.b.c', value, ...] list merged over the
-    checkpoint's config; `half` evaluates with bf16 convs; `save_folder`
-    also writes each sample's outputs there. The checkpoint's EMA weights
+    checkpoint's config; `half` evaluates with bf16 convs; `int8` and
+    `int8_weights` set model.params.int8_outputs and int8_weights (the
+    sigmoids and the depth-net kernels fake-quantized to int8: the INT8
+    deployment's metrics); `save_folder` also writes each sample's
+    outputs there, from the float weights. The checkpoint's EMA weights
     are evaluated when it has them (model.optimizer.ema_eval)."""
-    if int8 or int8_weights:
-        raise NotImplementedError('int8 eval is not ported yet (ROADMAP.md '
-                                  'section 1: int8 eval)')
     dev = resolve_device(device)
     config, state = parse_test_file(ckpt_file, cfg_file, overrides)
     if save_folder:
@@ -130,6 +131,10 @@ def test(ckpt_file, cfg_file=None, half=False, int8=False, save_folder='',
         config.save.pretrained = ckpt_file
     if half:
         config.tpu.compute_dtype = 'bfloat16'
+    if int8:
+        config.model.params.int8_outputs = True
+    if int8_weights:
+        config.model.params.int8_weights = True
     key = 'ema_params' if state.get('ema_params') is not None and \
         config.model.optimizer.get('ema_eval', True) else 'params'
     model = load_weights(setup_model(config), state, key).to(dev).eval()
@@ -148,9 +153,11 @@ if __name__ == '__main__':
     ap.add_argument('--half', action='store_true',
                     help='with --checkpoint: bf16 convs')
     ap.add_argument('--int8', action='store_true',
-                    help='with --checkpoint: int8 outputs (not ported)')
+                    help='with --checkpoint: fake-quantize the outputs to '
+                         'uint8 (the INT8 output cost)')
     ap.add_argument('--int8-weights', action='store_true',
-                    help='with --checkpoint: int8 weights (not ported)')
+                    help='with --checkpoint: fake-quantize the depth-net '
+                         'conv kernels per output channel to int8')
     ap.add_argument('--save_folder', default='',
                     help='with --checkpoint: write per-sample outputs here')
     ap.add_argument('--device', default='cuda')

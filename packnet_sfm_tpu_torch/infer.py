@@ -7,8 +7,9 @@ colour visualisation.
         --input img_or_dir --output out_dir [--image_shape H W] \
         [--save npz png viz] [--mask mask.png] [--colormap plasma|depth]
 
-The network sees RGB only (no LiDAR input). Runs on the card unless
---device cpu is passed.
+The network sees RGB only (no LiDAR input). A dual-head model's depth is
+integer * max_depth + fractional (max_depth 80 when unset). Runs on the
+card unless --device cpu is passed.
 """
 
 import argparse
@@ -23,7 +24,8 @@ from packnet_sfm_tpu_torch.datasets.io import (
 from packnet_sfm_tpu_torch.datasets.transforms import resize_image
 from packnet_sfm_tpu_torch.device import resolve_device
 from packnet_sfm_tpu_torch.models.factory import setup_model
-from packnet_sfm_tpu_torch.ops.depth import inv2depth, sigmoid_to_inv_depth
+from packnet_sfm_tpu_torch.ops.depth import (
+    dual_head_to_depth, inv2depth, sigmoid_to_inv_depth)
 from packnet_sfm_tpu_torch.parallel.train_step import make_eval_step
 from packnet_sfm_tpu_torch.utils.checkpoint import load_weights
 from packnet_sfm_tpu_torch.utils.viz import viz_depth_metric, viz_inv_depth
@@ -39,10 +41,7 @@ def infer_and_save_depth(ckpt_file, input_path, output_path,
     an image whose nonzero pixels keep the input."""
     dev = resolve_device(device)
     config, state = parse_test_file(ckpt_file)
-    if config.model.depth_net.get('use_dual_head', False):
-        raise NotImplementedError('dual-head inference is not ported yet '
-                                  '(ROADMAP.md section 1: the dual head in '
-                                  'the eval and inference CLIs)')
+    dual = bool(config.model.depth_net.get('use_dual_head', False))
     model = load_weights(setup_model(config), state).to(dev).eval()
     forward = make_eval_step(model)
 
@@ -70,11 +69,18 @@ def infer_and_save_depth(ckpt_file, input_path, output_path,
             if m.shape[:2] != rgb.shape[:2]:
                 m = resize_image(np.repeat(m, 3, -1), rgb.shape[:2])[..., :1]
             rgb = rgb * (m > 0)
-        sig = forward({'rgb': torch.from_numpy(
+        out = forward({'rgb': torch.from_numpy(
             np.ascontiguousarray(rgb[None], np.float32)).to(dev)})
-        inv_depth = sigmoid_to_inv_depth(sig['inv_depths'][0][0].float(),
-                                         min_d, max_d, params.use_log_space)
-        depth = inv2depth(inv_depth)[..., 0].cpu().numpy()
+        if dual:
+            depth_map = dual_head_to_depth(out[('integer', 0)][0],
+                                           out[('fractional', 0)][0], max_d)
+            inv_depth = 1.0 / depth_map.clamp(min=1e-6)
+            depth = depth_map[..., 0].cpu().numpy()
+        else:
+            inv_depth = sigmoid_to_inv_depth(
+                out['inv_depths'][0][0].float(), min_d, max_d,
+                params.use_log_space)
+            depth = inv2depth(inv_depth)[..., 0].cpu().numpy()
         base = os.path.splitext(os.path.basename(f))[0]
         if 'npz' in save:
             write_depth(os.path.join(output_path, base + '.npz'), depth)

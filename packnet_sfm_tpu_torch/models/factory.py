@@ -9,6 +9,7 @@ import math
 
 import torch
 
+from packnet_sfm_tpu_torch.losses.dual_head import DualHeadDepthLoss
 from packnet_sfm_tpu_torch.losses.generic_photometric import (
     GenericMultiViewPhotometricLoss)
 from packnet_sfm_tpu_torch.losses.photometric import MultiViewPhotometricLoss
@@ -139,6 +140,12 @@ def setup_model(config):
             min_depth=min_d, max_depth=max_d,
             use_log_space=params_cfg.use_log_space,
             qat_outputs='outputs' in str(params_cfg.get('qat', '')),
+            dual_head_loss=DualHeadDepthLoss(
+                max_depth=max_d, min_depth=min_d,
+                integer_weight=loss_cfg.get('integer_weight', 1.0),
+                fractional_weight=loss_cfg.get('fractional_weight', 10.0),
+                consistency_weight=loss_cfg.get('dual_consistency_weight',
+                                                0.5)),
             photometric_loss=setup_photometric_loss(config),
             **common)
     if name == 'GenericSelfSupModel':

@@ -7,19 +7,20 @@ Batches are dicts of NHWC tensors: rgb [B,H,W,3], optional input_depth
 [B,H,W,1], depth (GT) [B,H,W,1], and for the self-supervised terms
 rgb_original, rgb_context and rgb_context_original (lists of [B,H,W,3]) and
 intrinsics [B,3,3]. The module's `training` flag picks the branch, as the
-JAX `train` argument does. The fisheye camera, PoseResNet, VelSupModel, the
-dual-head loss and QAT belong to later slices of the port and raise
-NotImplementedError.
+JAX `train` argument does. The fisheye camera, PoseResNet and VelSupModel
+belong to later slices of the port and raise NotImplementedError.
 """
 
 import torch
 import torch.nn as nn
 
 from packnet_sfm_tpu_torch.geometry.pose import Pose
+from packnet_sfm_tpu_torch.losses.dual_head import DualHeadDepthLoss
 from packnet_sfm_tpu_torch.losses.photometric import MultiViewPhotometricLoss
 from packnet_sfm_tpu_torch.losses.supervised import SupervisedLoss
 from packnet_sfm_tpu_torch.ops.depth import sigmoid_to_inv_depth, depth2inv
 from packnet_sfm_tpu_torch.ops.image import flip_lr, interpolate
+from packnet_sfm_tpu_torch.ops.quantization import ste_quant_u8
 
 
 def _flip_output(output):
@@ -162,12 +163,18 @@ class SemiSupCompletionModel(SelfSupModel):
     forward; training adds the GT clamp, the sigmoid -> bounded inverse
     depth conversion, the supervised loss on the RGB and RGB+D pyramids,
     the feature-consistency `depth_loss`, and the RGB <-> RGB+D prediction
-    consistency against a detached target."""
+    consistency against a detached target. A dual-head depth net's
+    ('integer', i) / ('fractional', i) maps take `dual_head_loss` instead
+    of the supervised loss. `qat_outputs` (model.params.qat 'outputs')
+    puts the straight-through uint8 fake quantizer on every head sigmoid
+    before its conversion, where the eval protocol's int8_outputs puts
+    fake_quant_u8."""
 
     def __init__(self, depth_net, supervised_loss=None,
                  supervised_loss_weight=0.9, weight_rgbd=1.0,
                  consistency_loss_weight=0.0, min_depth=0.5, max_depth=80.0,
-                 use_log_space=False, qat_outputs=False, **kwargs):
+                 use_log_space=False, qat_outputs=False, dual_head_loss=None,
+                 **kwargs):
         super().__init__(depth_net, **kwargs)
         self.supervised_loss = supervised_loss or SupervisedLoss()
         self.supervised_loss_weight = supervised_loss_weight
@@ -177,6 +184,8 @@ class SemiSupCompletionModel(SelfSupModel):
         self.max_depth = max_depth
         self.use_log_space = use_log_space
         self.qat_outputs = qat_outputs
+        self.dual_head_loss = dual_head_loss or DualHeadDepthLoss(
+            max_depth=max_depth, min_depth=min_depth)
 
     def _clamp_gt(self, depth):
         """Clamp valid GT into [min_depth, max_depth]."""
@@ -185,24 +194,28 @@ class SemiSupCompletionModel(SelfSupModel):
                            depth)
 
     def _bounded(self, sigmoids):
+        if self.qat_outputs:
+            sigmoids = [ste_quant_u8(s) for s in sigmoids]
         return [sigmoid_to_inv_depth(s, self.min_depth, self.max_depth,
                                      self.use_log_space) for s in sigmoids]
 
     def forward(self, batch, progress=0.0, epoch=0, generator=None):
         if not self.training:
             return self.forward_base(batch)
-        if self.qat_outputs:
-            raise NotImplementedError(
-                'QAT is not ported yet (ROADMAP.md section 1, slice 7)')
-        if getattr(self.depth_net, 'use_dual_head', False):
-            raise NotImplementedError(
-                'the dual-head loss is not ported yet (ROADMAP.md section 1, '
-                'slice 7)')
         output, loss, metrics = self._self_sup_part(
             batch, progress, generator, self.supervised_loss_weight)
-        gt_inv = depth2inv(self._clamp_gt(batch['depth']))
-        sup = self.supervised_loss(self._bounded(output['inv_depths']),
-                                   gt_inv, progress=progress, epoch=epoch)
+        gt = self._clamp_gt(batch['depth'])
+        gt_inv = depth2inv(gt)
+        if 'inv_depths' in output:
+            sup = self.supervised_loss(self._bounded(output['inv_depths']),
+                                       gt_inv, progress=progress,
+                                       epoch=epoch)
+        else:
+            # the dual-head maps, ('integer', i) / ('fractional', i)
+            heads = {k: v for k, v in output.items() if isinstance(k, tuple)}
+            if self.qat_outputs:
+                heads = {k: ste_quant_u8(v) for k, v in heads.items()}
+            sup = self.dual_head_loss(heads, gt, progress=progress)
         loss = loss + self.supervised_loss_weight * sup['loss']
         metrics.update(sup['metrics'])
 

@@ -33,6 +33,12 @@ def sigmoid_to_depth_linear(sig, min_depth=0.05, max_depth=80.0):
     return 1.0 / (sigmoid_to_inv_depth(sig, min_depth, max_depth) + 1e-8)
 
 
+def sigmoid_to_depth_log(sig, min_depth=0.05, max_depth=80.0):
+    """depth from the log-space bounded inverse depth."""
+    return 1.0 / (sigmoid_to_inv_depth(sig, min_depth, max_depth, True)
+                  + 1e-8)
+
+
 def disp_to_depth(disp, min_depth, max_depth):
     """monodepth2's sigmoid -> (scaled disparity, depth) in [min, max]."""
     min_disp = 1.0 / max_depth
@@ -78,6 +84,19 @@ def depth2inv(depth):
 def dual_head_to_depth(integer_sig, fractional_sig, max_depth):
     """depth = integer_sig * max_depth + fractional_sig."""
     return integer_sig * max_depth + fractional_sig
+
+
+def decompose_depth(depth_gt, max_depth):
+    """GT -> (integer metres / max_depth, the fractional part)."""
+    integer_m = torch.floor(depth_gt)
+    return integer_m / max_depth, depth_gt - integer_m
+
+
+def dual_head_to_inv_depth(integer_sig, fractional_sig, max_depth,
+                           min_depth=0.5):
+    """1 / the dual-head depth clamped to [min_depth, max_depth + 1]."""
+    depth = dual_head_to_depth(integer_sig, fractional_sig, max_depth)
+    return 1.0 / depth.clamp(min_depth, max_depth + 1.0)
 
 
 def fuse_inv_depth(inv_depth, inv_depth_hat, method='mean'):

@@ -11,6 +11,14 @@ were, while the BN running statistics, which the forward moved, keep the
 move (as `mutable=['batch_stats']` does in JAX). The guard reads the loss
 on the host, one device sync per step.
 
+Under QAT on weights (`qat_weights`) and int8 eval (`int8_weights`) the
+model runs through torch.func.functional_call over its depth-net conv
+kernels fake-quantized per output channel (ops/quantization.py): the
+module's names, its state dict and Adam's layout stay as they are, the
+BN running statistics update in place, and the straight-through gradient
+reaches the latent float weights, which the optimizer updates and the
+checkpoints keep.
+
 `Optimizer.state_dict` / `load_state_dict` carry Adam's state in the flax
 layout a checkpoint holds: per group ('depth', 'pose') the update count
 and the moments `mu` (exp_avg) and `nu` (exp_avg_sq) as trees shaped like
@@ -28,37 +36,67 @@ from packnet_sfm_tpu_torch.ops.depth import (
     sigmoid_to_inv_depth, inv2depth, compute_depth_metrics,
     dual_head_to_depth, post_process_inv_depth)
 from packnet_sfm_tpu_torch.ops.image import flip_lr
+from packnet_sfm_tpu_torch.ops.quantization import (
+    depth_net_kernels, fake_quant_u8, quantize_depth_net_params)
 from packnet_sfm_tpu_torch.utils.flax_weights import (
     flax_param_arrays, flax_tree)
 
 
-def make_eval_step(model):
+def _int8_weights_forward(model):
+    """call(*args, **kwargs) running `model` over its depth-net kernels
+    fake-quantized to int8, without gradients. The quantized copy is made
+    again only when a kernel changed (its storage or its version counter,
+    which every in-place update bumps), so an evaluation quantizes once."""
+    kernels = depth_net_kernels(model)
+    cache = {}
+
+    def call(*args, **kwargs):
+        params = dict(model.named_parameters())
+        key = tuple((params[n].data_ptr(), params[n]._version)
+                    for n in kernels)
+        if cache.get('key') != key:
+            with torch.no_grad():
+                cache['params'] = quantize_depth_net_params(model,
+                                                            kernels=kernels)
+            cache['key'] = key
+        return torch.func.functional_call(model, cache['params'], args,
+                                          kwargs)
+    return call
+
+
+def make_eval_step(model, int8_weights=False):
     """batch -> model outputs, without autograd. Runs the model in eval mode
-    (the JAX step's train=False), whatever mode it was handed in."""
+    (the JAX step's train=False), whatever mode it was handed in;
+    `int8_weights` runs it over its depth-net kernels fake-quantized per
+    output channel (weight PTQ, or validation after QAT on weights)."""
+    forward = _int8_weights_forward(model) if int8_weights else model
+
     @torch.no_grad()
     def eval_step(batch):
         model.eval()
-        return model(batch)
+        return forward(batch)
     return eval_step
 
 
 def make_eval_metrics_step(model, params_cfg, flip_tta=False,
-                           int8_outputs=False):
+                           int8_outputs=False, int8_weights=False):
     """
     Per-batch eval protocol: forward (+ the flip-TTA second forward),
     sigmoid -> depth conversions, and the 7 metrics for every conversion
     mode with and without GT median scaling (reference
     model_wrapper.py:621-790). Returns step(batch) -> {mode: [7] tensor};
-    `batch` must hold 'depth' (GT).
+    `batch` must hold 'depth' (GT). `int8_outputs` fake-quantizes the
+    sigmoid (after the flip-TTA fusion) or both dual-head maps to uint8
+    before the depth conversion: the INT8 output cost is the metrics' move
+    against an eval without it. `int8_weights` runs the forward over int8
+    fake-quantized depth-net kernels (make_eval_step).
     """
-    if int8_outputs:
-        raise NotImplementedError('int8_outputs is not ported yet')
     min_d = float(params_cfg.min_depth)
     max_d = float(params_cfg.max_depth)
     crop = params_cfg.get('crop', '')
     scale_output = params_cfg.get('scale_output', 'resize')
     use_log = bool(params_cfg.get('use_log_space', False))
-    forward = make_eval_step(model)
+    forward = make_eval_step(model, int8_weights)
 
     @torch.no_grad()
     def step(batch):
@@ -73,14 +111,19 @@ def make_eval_metrics_step(model, params_cfg, flip_tta=False,
                     flipped['input_depth'] = flip_lr(batch['input_depth'])
                 sig = post_process_inv_depth(
                     sig, forward(flipped)['inv_depths'][0])
+            if int8_outputs:
+                sig = fake_quant_u8(sig)
             inv_lin = sigmoid_to_inv_depth(sig, min_d, max_d, False)
             inv_log = sigmoid_to_inv_depth(sig, min_d, max_d, True)
             depth_lin, depth_log = inv2depth(inv_lin), inv2depth(inv_log)
             cand = {'depth': depth_log if use_log else depth_lin,
                     'depth_lin': depth_lin, 'depth_log': depth_log}
         else:
-            cand = {'depth': dual_head_to_depth(
-                out[('integer', 0)], out[('fractional', 0)], max_d)}
+            int_sig, frac_sig = out[('integer', 0)], out[('fractional', 0)]
+            if int8_outputs:
+                int_sig, frac_sig = fake_quant_u8(int_sig), fake_quant_u8(
+                    frac_sig)
+            cand = {'depth': dual_head_to_depth(int_sig, frac_sig, max_d)}
         modes = {}
         for name, pred in cand.items():
             modes[name] = compute_depth_metrics(
@@ -316,19 +359,32 @@ def make_optimizer(model, optimizer_cfg, scheduler_cfg, steps_per_epoch,
     return Optimizer(model, groups, clip_grad)
 
 
-def make_train_step(model, optimizer, generator=None, augment=None):
+def make_train_step(model, optimizer, generator=None, augment=None,
+                    qat_weights=False):
     """step(batch, progress=0.0, epoch=0) -> {'loss', **metrics} (detached
     tensors). Runs the model in training mode; `generator` feeds its random
     lr-flip and `augment(batch, generator)`, which runs first on the batch
     when given (ops/augment.py, tpu.device_augment). A non-finite loss
-    skips the update (see the module note)."""
+    skips the update (see the module note). `qat_weights`
+    (model.params.qat holds 'weights'): the forward and backward see the
+    depth-net kernels fake-quantized per output channel, and the
+    straight-through gradient updates the latent float weights."""
+    kernels = depth_net_kernels(model) if qat_weights else None
+
+    def forward(batch, **kwargs):
+        if kernels is None:
+            return model(batch, **kwargs)
+        return torch.func.functional_call(
+            model, quantize_depth_net_params(model, kernels=kernels),
+            (batch,), kwargs)
+
     def train_step(batch, progress=0.0, epoch=0):
         if augment is not None:
             batch = augment(batch, generator)
         model.train()
         optimizer.zero_grad()
-        out = model(batch, progress=progress, epoch=epoch,
-                    generator=generator)
+        out = forward(batch, progress=progress, epoch=epoch,
+                      generator=generator)
         loss = out['loss']
         loss.backward()
         if bool(torch.isfinite(loss)):

@@ -28,6 +28,14 @@ before the step (`_quantize_progress`, so that few programs compile); that
 gives the scale count of the segment before the current one. The port
 passes the raw progress, whose scale count is ProgressiveScaling's.
 
+Under model.params.qat 'weights' the train step runs over int8
+fake-quantized depth-net kernels, and validation, the quick evals and the
+logged images use those int8 weights, as JAX `_build_steps` /
+`_get_metrics_step` (:226-270) do; model.params.int8_outputs and
+int8_weights set the eval protocol's quantizers. The save pass writes what
+the float weights predict, without int8_outputs, as JAX
+`_save_eval_outputs` does.
+
 `evaluate` is the batch-size-weighted accumulation and flat `mode-metric`
 dict of its Trainer.validate (:506-561), with its per-batch warn-and-skip;
 `make_loader`, `validate`, `validate_multi`, `test` and
@@ -51,6 +59,7 @@ from packnet_sfm_tpu_torch.models.factory import (
 from packnet_sfm_tpu_torch.networks.layers.san import (
     calibrate_san_row_window)
 from packnet_sfm_tpu_torch.ops.augment import device_color_jitter
+from packnet_sfm_tpu_torch.ops.depth import dual_head_to_depth
 from packnet_sfm_tpu_torch.parallel.train_step import (
     make_eval_metrics_step, make_eval_step, make_optimizer, make_train_step)
 from packnet_sfm_tpu_torch.utils.checkpoint import (
@@ -76,6 +85,23 @@ class Metrics(dict):
         self.skipped = skipped
 
 
+def qat_weights(params):
+    """model.params.qat asks for QAT on weights."""
+    return 'weights' in str(params.get('qat', ''))
+
+
+def metrics_step(config, model):
+    """The eval protocol step of `config` (JAX `_get_metrics_step`): its
+    flip-TTA and int8_outputs, and int8 weights under int8_weights or QAT on
+    weights."""
+    params = config.model.params
+    return make_eval_metrics_step(
+        model, params, flip_tta=bool(params.get('flip_tta', False)),
+        int8_outputs=bool(params.get('int8_outputs', False)),
+        int8_weights=bool(params.get('int8_weights', False)) or
+        qat_weights(params))
+
+
 def evaluate(config, model, batches, title='Evaluation'):
     """Run the eval protocol over `batches` (dicts of NHWC arrays or
     tensors; each moves to the model's device through `to_device_batch`)
@@ -84,11 +110,7 @@ def evaluate(config, model, batches, title='Evaluation'):
     is reported and skipped (`Metrics.skipped`); when every batch failed it
     raises, so a broken pipeline cannot pass for an empty evaluation. No
     batch gives an empty Metrics."""
-    params = config.model.params
-    step = make_eval_metrics_step(model, params,
-                                  flip_tta=bool(params.get('flip_tta', False)),
-                                  int8_outputs=bool(params.get('int8_outputs',
-                                                               False)))
+    step = metrics_step(config, model)
     device = next(model.parameters()).device
     accum, count, seen, skipped, error = {}, 0, 0, 0, None
     batches = iter(batches)
@@ -229,12 +251,12 @@ def save_eval_outputs(config, model, loader, dataset_idx=0):
     """A second pass over `loader` writing <save.folder>/depth/<dataset>/
     <ckpt>/<name>_{depth.npz, depth.png, rgb.png, viz.png} per the
     save.depth flags (reference utils/save.py). As in the JAX package, the
-    saved depth is 1 / the network's sigmoid output. Returns the number of
-    samples written."""
-    if config.model.depth_net.get('use_dual_head', False):
-        raise NotImplementedError('dual-head outputs are not saved yet '
-                                  '(ROADMAP.md section 1: the dual head in '
-                                  'the eval and inference CLIs)')
+    saved depth is 1 / the network's sigmoid output, or for a dual head
+    1 / max(dual_head_to_depth(integer, fractional, max_depth), 1e-6); the
+    float weights run, whatever model.params.qat, int8_outputs and
+    int8_weights say. Returns the number of samples written."""
+    dual = bool(config.model.depth_net.get('use_dual_head', False))
+    max_d = config.model.params.max_depth or 80.0
     ckpt_name = os.path.basename(
         config.save.get('pretrained', '') or config.checkpoint.filepath
         or '').replace('{', '').replace('}', '').replace(':', '') or 'model'
@@ -245,7 +267,12 @@ def save_eval_outputs(config, model, loader, dataset_idx=0):
     total = 0
     for batch in loader:
         out = forward(to_device_batch(batch, device))
-        inv = out['inv_depths'][0].float().cpu().numpy()
+        if dual:
+            depth = dual_head_to_depth(out[('integer', 0)],
+                                       out[('fractional', 0)], max_d)
+            inv = (1.0 / depth.clamp(min=1e-6)).float().cpu().numpy()
+        else:
+            inv = out['inv_depths'][0].float().cpu().numpy()
         total += save_depth(batch, inv, config.save, ds_cfg,
                             ckpt_name=ckpt_name, dataset_idx=dataset_idx)
     print(pcolor('saved {} eval outputs -> {}'.format(
@@ -344,8 +371,9 @@ class Trainer:
             self._resume(self.resume_state)
 
     def _build_step(self):
-        self.train_step = make_train_step(self.model, self.optimizer,
-                                          self.generator, self._augment)
+        self.train_step = make_train_step(
+            self.model, self.optimizer, self.generator, self._augment,
+            qat_weights=qat_weights(self.config.model.params))
 
     def _resume(self, state):
         load_weights(self.model, state)
@@ -485,12 +513,13 @@ class Trainer:
     def quick_eval(self, val_loader, step_i, steps):
         """Mid-epoch eval of arch.eval_subset_size validation samples,
         printing abs_rel from RGB alone and from RGB + LiDAR (reference
-        horovod_trainer.py:127-220). A persistent iterator goes round the
-        validation set, so successive calls see different samples."""
+        horovod_trainer.py:127-220), the means of the batches' abs_rel; returns
+        them as {'rgb', 'rgbd'} (None without such batches). The eval
+        protocol is validation's (`metrics_step`). A persistent iterator goes
+        round the validation set, so successive calls see different
+        samples."""
         subset = int(self.config.arch.eval_subset_size)
-        params = self.config.model.params
-        metrics_step = make_eval_metrics_step(
-            self.model, params, flip_tta=bool(params.get('flip_tta', False)))
+        step = metrics_step(self.config, self.model)
         seen, rgb, rgbd = 0, [], []
         it = self._quick_eval_iter
         while seen < subset:
@@ -509,18 +538,20 @@ class Trainer:
                 it = None
                 break
             if 'input_depth' in dev:
-                rgbd.append(metrics_step(dev)['depth'][0])
+                rgbd.append(step(dev)['depth'][0])
                 dev = {k: v for k, v in dev.items() if k != 'input_depth'}
-            rgb.append(metrics_step(dev)['depth'][0])
+            rgb.append(step(dev)['depth'][0])
             seen += dev['rgb'].shape[0]
         self._quick_eval_iter = it
+        means = {k: float(torch.stack(v).mean()) if v else None
+                 for k, v in (('rgb', rgb), ('rgbd', rgbd))}
         if rgb:
             msg = '  [eval @ {}/{}] abs_rel RGB {:.4f}'.format(
-                step_i, steps, float(torch.stack(rgb).mean()))
+                step_i, steps, means['rgb'])
             if rgbd:
-                msg += ' | RGB+LiDAR {:.4f}'.format(
-                    float(torch.stack(rgbd).mean()))
+                msg += ' | RGB+LiDAR {:.4f}'.format(means['rgbd'])
             print(pcolor(msg, 'yellow'))
+        return means
 
     def _maybe_switch_precision(self, epoch):
         """Bf16 photometric maps for the bulk of training, fp32 from
@@ -539,14 +570,17 @@ class Trainer:
 
     def _log_val_images(self, val_loader, epoch):
         """Up to 4 validation images and their predicted inverse depths,
-        coloured, to the logger."""
+        coloured, to the logger (on the int8 weights under QAT on weights);
+        nothing for a dual-head model, as in JAX."""
         if val_loader is None:
             return
         try:
             batch = next(iter(val_loader))
         except StopIteration:
             return
-        out = make_eval_step(self.model)(to_device_batch(batch, self.device))
+        step = make_eval_step(self.model,
+                              qat_weights(self.config.model.params))
+        out = step(to_device_batch(batch, self.device))
         if 'inv_depths' not in out:
             return
         rgb = np.asarray(batch['rgb'])[:4]

@@ -129,20 +129,40 @@ def flax_tree(model, values):
     tree = {}
     for key, value in values.items():
         *path, attr = key.split('.')
-        mod = model.get_submodule('.'.join(path))
+        leaf, perm = _flax_leaf(model.get_submodule('.'.join(path)), attr)
         arr = value.detach().cpu().float().numpy()
-        leaf = attr
-        if isinstance(mod, nn.Conv2d) and attr == 'weight':
-            leaf, arr = 'kernel', np.transpose(arr, (2, 3, 1, 0))
-        elif isinstance(mod, nn.BatchNorm2d):
-            leaf = _BN_LEAVES.get(attr, attr)
-        elif isinstance(mod, nn.GroupNorm):
-            leaf = _GN_LEAVES.get(attr, attr)
+        if perm is not None:
+            arr = np.transpose(arr, perm)
         node = tree
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(arr)
     return tree
+
+
+def _flax_leaf(mod, attr):
+    """(flax leaf name, the transpose from the torch layout to flax's or
+    None) of attribute `attr` of `mod`."""
+    if isinstance(mod, nn.Conv2d) and attr == 'weight':
+        return 'kernel', (2, 3, 1, 0)
+    if isinstance(mod, nn.BatchNorm2d):
+        return _BN_LEAVES.get(attr, attr), None
+    if isinstance(mod, nn.GroupNorm):
+        return _GN_LEAVES.get(attr, attr), None
+    return attr, None
+
+
+def flax_kernel_axis(model, name):
+    """The axis of parameter `name` of `model` that holds the last axis of
+    its flax leaf (a conv's output channel) when that leaf is a `kernel`,
+    else None: 0 for an nn.Conv2d weight (OIHW), the last for a kernel the
+    port keeps HWIO."""
+    *path, attr = name.split('.')
+    leaf, perm = _flax_leaf(model.get_submodule('.'.join(path)), attr)
+    if leaf != 'kernel':
+        return None
+    ndim = getattr(model.get_submodule('.'.join(path)), attr).ndim
+    return perm[-1] if perm is not None else ndim - 1
 
 
 def flax_variables(model):

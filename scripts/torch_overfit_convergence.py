@@ -74,6 +74,7 @@ def main(argv=None):
     device = trainer.device
     result = {
         'config': args.config,
+        'overrides': list(args.opts),
         'backend': device.type,
         'device': torch.cuda.get_device_name(device)
         if device.type == 'cuda' else 'cpu',

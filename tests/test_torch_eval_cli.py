@@ -28,7 +28,7 @@ from packnet_sfm_tpu_torch.utils.checkpoint import (
     load_weights, save_checkpoint)
 from tests.test_datasets import make_ncdb_tree
 from tests.torch_fixtures import CLI_SHAPE, one_torch_thread  # noqa: F401
-from tests.torch_fixtures import write_jax_checkpoint
+from tests.torch_fixtures import jitted_jax_init, write_jax_checkpoint
 
 pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
@@ -63,7 +63,8 @@ def runs(tmp_path_factory):
     mask[3:, 4:] = 255
     Image.fromarray(mask).save(str(d / 'mask.png'))
     out = {'root': root, 'ckpt': ckpt, 'dir': d}
-    out['jax'] = jax_eval.test(ckpt, save_folder=str(d / 'jax_save'))
+    with jitted_jax_init():         # the checkpoint's values replace it
+        out['jax'] = jax_eval.test(ckpt, save_folder=str(d / 'jax_save'))
     out['port'] = port_eval.test(ckpt, save_folder=str(d / 'port_save'),
                                  device='cpu')
     jax_infer.infer_and_save_depth(ckpt, frames, str(d / 'jax_infer'),
@@ -118,30 +119,35 @@ def test_command_lines_and_refusals(runs, tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     frame = os.path.join(runs['root'], 'synced_data', 'image_a6',
                          'frame_0001.png')
+    # both command lines at once: each process reads the checkpoint
+    runs_ = [subprocess.Popen(
+        [sys.executable, '-m'] + cmd, env=env, cwd=str(tmp_path),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cmd in (['packnet_sfm_tpu_torch.eval', '--checkpoint',
+                     runs['ckpt'], '--device', 'cpu',
+                     'datasets.test.batch_size', '3', '--int8',
+                     '--int8-weights'],
+                    ['packnet_sfm_tpu_torch.infer', '--checkpoint',
+                     runs['ckpt'], '--input', frame, '--output',
+                     str(tmp_path / 'one'), '--image_shape', '32', '64',
+                     '--device', 'cpu', '--colormap', 'depth'])]
     outputs = []
-    for cmd in (['packnet_sfm_tpu_torch.eval', '--checkpoint', runs['ckpt'],
-                 '--device', 'cpu', 'datasets.test.batch_size', '3'],
-                ['packnet_sfm_tpu_torch.infer', '--checkpoint', runs['ckpt'],
-                 '--input', frame, '--output', str(tmp_path / 'one'),
-                 '--image_shape', '32', '64', '--device', 'cpu',
-                 '--colormap', 'depth']):
-        run = subprocess.run([sys.executable, '-m'] + cmd, env=env,
-                             cwd=str(tmp_path), capture_output=True,
-                             text=True, timeout=300)
-        assert run.returncode == 0, run.stderr[-3000:]
-        outputs.append(run.stdout)
+    for run in runs_:
+        out, err = run.communicate(timeout=300)
+        assert run.returncode == 0, err[-3000:]
+        outputs.append(out)
     assert '| depth_log_gt ' in outputs[0]
     assert _files(tmp_path / 'one') == ['frame_0001.npz',
                                         'frame_0001_viz.png']
-    with pytest.raises(NotImplementedError, match='int8'):
-        port_eval.test(runs['ckpt'], int8=True, device='cpu')
+    # int8 eval and the dual head, which earlier slices refused, now run
     config, state = parse_test_file(runs['ckpt'])
     config.model.depth_net.use_dual_head = True
     dual = save_checkpoint(str(tmp_path / 'dual.ckpt'), config,
                            setup_model(config))
-    with pytest.raises(NotImplementedError, match='dual'):
-        port_infer.infer_and_save_depth(dual, runs['root'], str(tmp_path),
-                                        device='cpu')
+    port_infer.infer_and_save_depth(dual, frame, str(tmp_path / 'dual'),
+                                    image_shape=(32, 64), device='cpu')
+    assert _files(tmp_path / 'dual') == ['frame_0001.npz',
+                                         'frame_0001_viz.png']
     os.remove(dual)
 
 

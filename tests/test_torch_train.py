@@ -5,7 +5,8 @@ train-mode BatchNorm and MaskedBatchNorm, the masked max-pool's gradient
 with tied zeros, the supervised losses, the lr schedules, the optimizer
 against optax on the same gradients, the whole SemiSupCompletionModel
 train step (ResNetSAN01 18A, FiLM, sparse-ssi-silog; with and without
-san_row_window) against jax.value_and_grad and make_train_step, the
+san_row_window) against JAX make_train_step (one compile a window serves
+both: the first step's gradients are recorded before the clip), the
 non-finite guard, train.main, and evaluate on a training-mode model.
 
 Tolerances, each with its reason:
@@ -123,8 +124,8 @@ def test_masked_batch_norm_train_matches_flax():
                           x_, mask, train=True, mutable=['batch_stats'])
         return (y * r).sum(), (y, mut['batch_stats'])
 
-    (_, (want_y, want_bs)), (want_dx, want_dp) = jax.value_and_grad(
-        f, argnums=(0, 1), has_aux=True)(x, v['params'])
+    (_, (want_y, want_bs)), (want_dx, want_dp) = jax.jit(jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True))(x, v['params'])
     tm = load_flax_variables(tsan.MaskedBatchNorm(16), v).train()
     xt = t(x).requires_grad_(True)
     y = tm(xt, t(mask))
@@ -151,8 +152,8 @@ def test_batch_norm_train_matches_flax():
                           x_, mutable=['batch_stats'])
         return (y * r).sum(), (y, mut['batch_stats'])
 
-    (_, (want_y, want_bs)), (want_dx, want_dp) = jax.value_and_grad(
-        f, argnums=(0, 1), has_aux=True)(x, v['params'])
+    (_, (want_y, want_bs)), (want_dx, want_dp) = jax.jit(jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True))(x, v['params'])
     tm = load_flax_variables(tresnet.BatchNorm(8), v).train()
     xt = t(x).permute(0, 3, 1, 2).requires_grad_(True)
     y = tm(xt)
@@ -179,7 +180,7 @@ def test_masked_max_pool_gradient_with_tied_zeros():
     def f(x_):
         return (jsan.masked_max_pool(x_, jnp.asarray(mask))[0] * r).sum()
 
-    want = np.asarray(jax.grad(f)(jnp.asarray(x)))
+    want = np.asarray(jax.jit(jax.grad(f))(jnp.asarray(x)))
     xt = t(x).requires_grad_(True)
     (tsan.masked_max_pool(xt, t(mask))[0] * t(r)).sum().backward()
     np.testing.assert_array_equal(xt.grad.numpy(), want)
@@ -225,7 +226,7 @@ def test_supervised_loss_matches_jax(method):
         out = jl(ps, jnp.asarray(gt), progress=0.3, epoch=4)
         return out['loss'], out['metrics']
 
-    (want, want_m), want_g = jax.value_and_grad(f, has_aux=True)(
+    (want, want_m), want_g = jax.jit(jax.value_and_grad(f, has_aux=True))(
         [jnp.asarray(p) for p in preds])
     pt = [t(p).requires_grad_(True) for p in preds]
     got = tl(pt, t(gt), progress=0.3, epoch=4)
@@ -255,8 +256,9 @@ def test_ssi_silog_below_100_valid_pixels_is_zero():
 def test_ssi_silog_gradient_term_matches_jax():
     preds, gt = _loss_inputs(7, valid_frac=0.6)
     m = (gt > 0).astype(np.float32)
-    want = jsup.ssi_silog_loss(preds[0], gt, m, min_depth=0.5, max_depth=15.0,
-                               gradient_weight=0.5, gradient_scales=3)
+    want = jax.jit(lambda p, g, m_: jsup.ssi_silog_loss(
+        p, g, m_, min_depth=0.5, max_depth=15.0, gradient_weight=0.5,
+        gradient_scales=3))(preds[0], gt, m)
     got = tsup.ssi_silog_loss(t(preds[0]), t(gt), t(m), min_depth=0.5,
                               max_depth=15.0, gradient_weight=0.5,
                               gradient_scales=3)
@@ -322,6 +324,7 @@ def test_optimizer_matches_optax_on_the_same_gradients():
     sched = {'name': 'StepLR', 'step_size': 1, 'gamma': 0.5}
     jtx = j_make_opt(opt_cfg, sched, 2, clip_grad=10.0)
     jstate = jtx.init(params)
+    update = jax.jit(jtx.update)
     model = _TwoGroups(shapes)
     with torch.no_grad():
         for n, d in params.items():
@@ -333,7 +336,7 @@ def test_optimizer_matches_optax_on_the_same_gradients():
         scale = 20.0 if step % 2 else 0.5        # clip on odd steps only
         grads = {n: {k: (rng.randn(*s) * scale).astype(np.float32)
                      for k, s in d.items()} for n, d in shapes.items()}
-        updates, jstate = jtx.update(grads, jstate, jp)
+        updates, jstate = update(grads, jstate, jp)
         jp = optax.apply_updates(jp, updates)
         for n, d in grads.items():
             for k, g in d.items():
@@ -377,22 +380,63 @@ def _configs(window):
     return j_parse(CONFIG, list(over)), t_parse(CONFIG, list(over))
 
 
+def _recording(tx):
+    """optax's `tx` behind a transformation that keeps the raw gradients
+    of the last update as its state, unchanged otherwise."""
+    record = optax.GradientTransformation(
+        lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
+        lambda updates, state, params=None: (updates, updates))
+    return optax.chain(record, tx)
+
+
+@pytest.fixture(scope='module')
+def jax_steps(setup):
+    """window -> three steps of JAX make_train_step (its value_and_grad of
+    the model's loss, the clip, Adam; one compile a window) from the
+    randomised variables: step 1's loss, metrics, gradients (recorded
+    before the clip) and statistics, and each step's loss and state."""
+    variables, _, np_batch = setup
+    runs = {}
+
+    def run(window):
+        if window not in runs:
+            jcfg, _ = _configs(window)
+            jm = j_setup_model(jcfg)
+            jtx = _recording(j_make_opt(
+                jcfg.model.optimizer, jcfg.model.scheduler, 1,
+                clip_grad=jcfg.arch.clip_grad))
+            state = TrainState(params=variables['params'],
+                               batch_stats=variables['batch_stats'],
+                               opt_state=jax.jit(jtx.init)(
+                                   variables['params']),
+                               step=jnp.zeros((), jnp.int32),
+                               epoch=jnp.zeros((), jnp.int32))
+            jstep = j_make_step(jm, jtx, donate=False)
+            out = {'losses': []}
+            for i in range(3):
+                state, metrics = jstep(state, np_batch,
+                                       jax.random.PRNGKey(0), 0.0)
+                out['losses'].append(float(metrics['loss']))
+                if i == 0:
+                    out['first'] = {
+                        'metrics': {k: v for k, v in metrics.items()
+                                    if k != 'loss'},
+                        'grads': state.opt_state[0],
+                        'stats': state.batch_stats}
+            out['state'] = state
+            runs[window] = out
+        return runs[window]
+    return run
+
+
 @pytest.mark.parametrize('window', [0.0, 0.67])
-def test_train_step_loss_metrics_gradients_match_jax(setup, window):
+def test_train_step_loss_metrics_gradients_match_jax(setup, jax_steps,
+                                                     window):
     variables, batch, np_batch = setup
-    jcfg, tcfg = _configs(window)
-    jm = j_setup_model(jcfg)
-    key = jax.random.PRNGKey(0)
-
-    def loss_fn(params, stats):
-        out, mut = jm.apply({'params': params, 'batch_stats': stats},
-                            np_batch, train=True, progress=0.0, epoch=0,
-                            rngs={'flip': key, 'dropout': key},
-                            mutable=['batch_stats'])
-        return out['loss'], (mut['batch_stats'], out['metrics'])
-
-    (jloss, (jstats, jmetrics)), jgrads = jax.jit(jax.value_and_grad(
-        loss_fn, has_aux=True))(variables['params'], variables['batch_stats'])
+    _, tcfg = _configs(window)
+    jrun = jax_steps(window)
+    jloss, jmetrics = jrun['losses'][0], jrun['first']['metrics']
+    jgrads, jstats = jrun['first']['grads'], jrun['first']['stats']
 
     tm = load_flax_variables(t_setup_model(tcfg), variables).train()
     out = tm(batch)
@@ -419,27 +463,20 @@ def test_train_step_loss_metrics_gradients_match_jax(setup, window):
 
 
 @pytest.mark.parametrize('window', [0.0, 0.67])
-def test_three_adam_steps_match_jax_make_train_step(setup, window):
+def test_three_adam_steps_match_jax_make_train_step(setup, jax_steps,
+                                                    window):
     variables, batch, np_batch = setup
-    jcfg, tcfg = _configs(window)
-    jm = j_setup_model(jcfg)
-    jtx = j_make_opt(jcfg.model.optimizer, jcfg.model.scheduler, 1,
-                     clip_grad=jcfg.arch.clip_grad)
-    state = TrainState(params=variables['params'],
-                       batch_stats=variables['batch_stats'],
-                       opt_state=jtx.init(variables['params']),
-                       step=jnp.zeros((), jnp.int32),
-                       epoch=jnp.zeros((), jnp.int32))
-    jstep = j_make_step(jm, jtx, donate=False)
+    _, tcfg = _configs(window)
+    jrun = jax_steps(window)
+    state = jrun['state']
     tm = load_flax_variables(t_setup_model(tcfg), variables)
     opt = t_make_opt(tm, tcfg.model.optimizer, tcfg.model.scheduler, 1,
                      clip_grad=tcfg.arch.clip_grad)
     tstep = t_make_step(tm, opt)
-    for _ in range(3):
-        state, jmetrics = jstep(state, np_batch, jax.random.PRNGKey(0), 0.0)
+    for jloss in jrun['losses']:
         tmetrics = tstep(batch)
-        np.testing.assert_allclose(float(tmetrics['loss']),
-                                   float(jmetrics['loss']), rtol=2e-4)
+        np.testing.assert_allclose(float(tmetrics['loss']), jloss,
+                                   rtol=2e-4)
     assert opt.count == 3 and int(state.step) == 3
 
     before = flax_state_dict(tm, variables)

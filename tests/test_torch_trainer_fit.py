@@ -64,8 +64,8 @@ from packnet_sfm_tpu_torch.utils.checkpoint import (
     ModelCheckpoint, adam_state, load_checkpoint)
 from packnet_sfm_tpu_torch.utils.flax_weights import flax_state_dict
 from tests.torch_fixtures import (  # noqa: F401
-    CONFIG, OVERFIT, RecordingTrainer, ckpt_files, ncdb_splits,
-    ncdb_train_overrides, one_torch_thread)
+    CONFIG, OVERFIT, RecordingTrainer, ckpt_files, jitted_jax_init,
+    ncdb_splits, ncdb_train_overrides, one_torch_thread)
 
 pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
@@ -88,13 +88,16 @@ class RecordingJTrainer(JTrainer):
 
 @pytest.fixture(scope='module')
 def jax_epoch0(tmp_path_factory):
-    """The JAX Trainer.fit over epoch 0 and the checkpoint it saves."""
+    """The JAX Trainer.fit over epoch 0 and the checkpoint it saves (its
+    init_state compiled as one program, tests/torch_fixtures.py
+    jitted_jax_init: both packages start epoch 1 from what it saved)."""
     tmp = tmp_path_factory.mktemp('jax')
     cfg = j_parse(OVERFIT, FP32 + ['arch.max_epochs', 1,
                                    'checkpoint.filepath', str(tmp),
                                    'checkpoint.monitor', 'loss'])
     cfg.datasets.validation.dataset = []      # train only
-    JTrainer(cfg).fit()
+    with jitted_jax_init():
+        JTrainer(cfg).fit()
     paths = ckpt_files(tmp)
     assert len(paths) == 1
     return str(tmp / paths[0])
@@ -140,7 +143,8 @@ def test_resumed_epoch_matches_jax(jax_epoch0):
     jcfg.checkpoint.filepath = ''
     jpayload['epoch'] = 1
     jt = RecordingJTrainer(jcfg, resume_state=jpayload)
-    jt.fit()
+    with jitted_jax_init():         # the file's values replace it
+        jt.fit()
     cfg, _ = parse_train_file(jax_epoch0, ['arch.max_epochs', 2,
                                            'checkpoint.filepath', ''])
     tt = RecordingTrainer(cfg, resume_state=payload, device='cpu')

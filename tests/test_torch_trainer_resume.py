@@ -36,7 +36,7 @@ from packnet_sfm_tpu_torch.trainers.trainer import Trainer
 from packnet_sfm_tpu_torch.utils import profiling
 from packnet_sfm_tpu_torch.utils.checkpoint import load_checkpoint
 from tests.torch_fixtures import (  # noqa: F401
-    OVERFIT, RecordingTrainer, ckpt_files, one_torch_thread)
+    OVERFIT, RecordingTrainer, ckpt_files, jitted_jax_init, one_torch_thread)
 
 pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
@@ -118,7 +118,8 @@ def test_jax_reads_a_port_checkpoint(port_run, capsys):
     loader = jt._make_loader('train')
     jt._steps_per_epoch = len(loader)
     capsys.readouterr()
-    jt.setup(_to_device_batch(next(iter(loader)), jt.mesh))
+    with jitted_jax_init():         # the checkpoint's values replace it
+        jt.setup(_to_device_batch(next(iter(loader)), jt.mesh))
     assert 'fresh optimizer' in capsys.readouterr().out
     host = jax.device_get(jt.state)
     jax.tree_util.tree_map(np.testing.assert_array_equal,

@@ -1,5 +1,6 @@
 """Fixtures and helpers shared by the port's tests (tests/test_torch_*.py)."""
 
+import contextlib
 from pathlib import Path
 
 import numpy as np
@@ -40,6 +41,47 @@ def cli_overrides(ncdb_root):
             'datasets.test.batch_size', 2,
             'datasets.test.num_workers', 2,
             'checkpoint.filepath', '']
+
+
+@contextlib.contextmanager
+def jitted_jax_init():
+    """Run the JAX Trainer's `init_state` (model.init and the optimizer's
+    init from an example batch) as one jitted program instead of op by op:
+    the same variables' shapes, and compiled once where the eager path
+    compiles each of its ~500 ops. For tests whose JAX trainer resumes
+    from a checkpoint or whose comparison starts from a checkpoint the
+    JAX trainer writes, so that the initial values themselves are not what
+    is compared."""
+    from packnet_sfm_tpu.parallel import train_step as jts
+    from packnet_sfm_tpu.trainers import trainer as jtrainer
+    import jax
+
+    def init_state(model, optimizer, batch, rng, ema=False):
+        return jax.jit(lambda b, r: jts.init_state(model, optimizer, b, r,
+                                                   ema))(batch, rng)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtrainer, 'init_state', init_state)
+        yield
+
+
+def randomize_variables(shapes, seed):
+    """Every leaf of a flax variable tree of `shapes` drawn with numpy:
+    kernels at 1/sqrt(fan-in), BN scales and variances in [0.5, 1.5],
+    everything else at 0.1 N(0, 1)."""
+    import jax
+    rng = np.random.RandomState(seed)
+
+    def leaf(path, x):
+        name = path[-1].key
+        if name == 'kernel':
+            return (rng.randn(*x.shape) / np.sqrt(np.prod(x.shape[:-1]))
+                    ).astype(np.float32)
+        if name in ('scale', 'var'):
+            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+        return (rng.randn(*x.shape) * 0.1).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
 def write_jax_checkpoint(path, ncdb_root, seed=4):
