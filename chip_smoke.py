@@ -154,6 +154,42 @@ it, with nothing of JAX:
    against the plain versions (atol 1e-4 over the metrics); infer.py on
    two frames, its depth (integer * max_depth + fractional) against the
    eval forward's; chiprun_out/chip_smoke_dual_head.json;
+   then KITTI and the rest of the self-supervised family (phase K): a
+   KITTI_raw drive of 36 frames at 375x1242 written with the port's
+   write_kitti_tree (OXTS packets, groundtruth PNGs, velodyne .npz at ~5%
+   fill below the horizon) and a seeded torchvision-layout resnet18 file
+   in $PACKNET_WEIGHTS_DIR for the '18pt' encoders; K1,
+   configs/train_kitti.yaml as written (DepthResNet + PoseResNet, B16
+   192x640, bf16 convs and maps) through train.fit for 2 epochs of 2
+   steps with validation: 2 warp forward and 2 dgrid launches a step, img/s
+   with data, data and step ms, the step alone; 10 steps on one batch, the
+   loss falling; the float32 maps through the fused kernels (2 steps: also
+   10 photometric forward and 8 backward launches a step); one float32
+   step through the warp and photometric kernels against every plain
+   version at the train step's limits, and the kernels against their plain
+   versions on that step's own inputs; K2,
+   configs/train_resnet_san_kitti.yaml (B4 on the 352x1216 crop,
+   sparse-silog, san_row_window -1 calibrated on the tree) with FiLM on
+   (as written, use_film false builds no SAN branch: its LiDAR reaches no
+   layer, in the JAX package too) through train.fit for one epoch of 2
+   steps with its two validation datasets (with and without LiDAR): 30
+   forward and 27 dgrad masked-conv launches a step, 30 a validation,
+   quick-eval or logged-image frame with LiDAR; the masked-conv kernels
+   against their plain versions at the step's own 30 shapes (the row
+   window's masks; fp32 and bf16), each launch in a CUDA graph beside
+   cuDNN's and its bound, by SAN level; the step alone; then
+   configs/eval_resnet_san_kitti.yaml over K2's checkpoint (garg crop,
+   scale_output top-center, the 352x1216 crop_eval_borders, the save
+   pass: 30 launches a frame in each pass), and in float32 through the
+   kernels against the plain versions (metrics within 1e-5); K3,
+   train_kitti.yaml's SelfSupModel on seeded 384x640 batches carrying
+   NCDB's A6 fisheye calibration (3 steps; at 384x640 every ray lands
+   within a few pixels of the principal point, so the warp kernels are
+   also held to their plain versions on the A6 grid of a 24x40 frame,
+   all of whose points fall outside [-1, 1]) and
+   VelSupModel on the Synthetic dataset's pose_context (1 step), each with
+   2 warp forward and 2 dgrid launches a step and one float32 step through
+   the kernels against the plain versions; chiprun_out/chip_smoke_kitti.json;
 4. (d) time eval img/s at B1 and the train step and img/s at B8, the
    forward kernel at the eval shapes and both kernels at the train shapes
    beside their plain versions, the library yardstick (one cuDNN call the
@@ -183,8 +219,8 @@ Run with no arguments: `python3 chip_smoke.py`. Exits nonzero without a
 card. Extra output goes to chiprun_out/chip_smoke_convs.json,
 chiprun_out/chip_smoke_selfsup.json, chiprun_out/chip_smoke_generic.json,
 chiprun_out/chip_smoke_gather.json, chiprun_out/chip_smoke_cli.json,
-chiprun_out/chip_smoke_train_disk.json and
-chiprun_out/chip_smoke_dual_head.json.
+chiprun_out/chip_smoke_train_disk.json,
+chiprun_out/chip_smoke_dual_head.json and chiprun_out/chip_smoke_kitti.json.
 """
 
 import contextlib
@@ -243,6 +279,15 @@ DUAL_EPOCHS = 2                        # epochs of the phase D runs
 # and variances of the masked convs' outputs, which the kernels give
 # within atol = rtol = 1e-4 of the plain version
 DUAL_STATS_REL = 1e-3
+KITTI_CONFIG = 'configs/train_kitti.yaml'
+SAN_KITTI_CONFIG = 'configs/train_resnet_san_kitti.yaml'
+SAN_KITTI_EVAL = 'configs/eval_resnet_san_kitti.yaml'
+KITTI_RAW = (375, 1242)                # KITTI raw's image size
+KITTI_FRAMES = 36                      # one drive of the phase K tree
+KITTI_VAL = (1, 2, 3, 4)               # its validation and test frames
+SAN_KITTI_TRAIN = range(10, 20)        # K2's frames, all with both contexts
+K1_EPOCHS = 2                          # of 2 steps (34 samples, B16)
+K3_SHAPE, K3_BATCH = (384, 640), 4     # the fisheye step: NCDB's A6 frames
 # fp32 adds: one instruction a lane a clock, 128 lanes an SM, 132 SMs at
 # 1.98 GHz (the 67 TFLOP/s peak counts an FMA as two)
 H100_FP32_ADDS_PER_S = 132 * 128 * 1.98e9
@@ -911,6 +956,23 @@ def main():
         counts['fwd'] += got['san_fwd']
         counts['dgrad'] += got['san_dgrad']
 
+    # ---------------------------------------------------------------- K
+    kitti_launches, kitti_convs = kitti_phase(card, dev, gen, reset_counts,
+                                              read_counts)
+    for got in kitti_launches.values():
+        counts['fwd'] += got['san_fwd']
+        counts['dgrad'] += got['san_dgrad']
+    for row in selfsup_rows:
+        key = {'warp_bilinear_out': 'warp_out',
+               'warp_bilinear_dgrid': 'warp_dgrid',
+               'photometric_fwd': 'photo_fwd',
+               'photometric_bwd': 'photo_bwd'}.get(row['name'])
+        if key:
+            for path, got in kitti_launches.items():
+                if got[key]:
+                    row['launches'] += got[key]
+                    row['launches_by_path'][path] = got[key]
+
     # ---------------------------------------------------------------- 4
     step = make_eval_step(model)
     fwd_ms = cuda_time_ms(lambda: step(batch), iters=20)
@@ -1021,7 +1083,10 @@ def main():
                              **{k: v['san_fwd']
                                 for k, v in disk_launches.items()},
                              **{k: v['san_fwd']
-                                for k, v in dual_launches.items()}},
+                                for k, v in dual_launches.items()},
+                             **{k: v['san_fwd']
+                                for k, v in kitti_launches.items()
+                                if v['san_fwd']}},
         'reduce_launches': reduce_totals['san_fwd'],
         'max_abs_err': max_err['float32'],
         'max_abs_err_bf16': max_err['bfloat16'],
@@ -1036,7 +1101,11 @@ def main():
         'train_step_bound_ms': fwd8['bound_ms'],
         'train_step_library_ms': fwd8['library_ms'],
         'train_step_graph_ms': fwd8['graph_ms'],
-        'train_step_library_graph_ms': fwd8['library_graph_ms']}, {
+        'train_step_library_graph_ms': fwd8['library_graph_ms'],
+        'kitti_k2_step_graph_ms': kitti_convs['forward']['graph_ms'],
+        'kitti_k2_step_library_graph_ms':
+            kitti_convs['forward']['library_graph_ms'],
+        'kitti_k2_step_bound_ms': kitti_convs['forward']['bound_ms']}, {
         'name': 'san_masked_conv2d_dgrad', 'route': 'cuda',
         'source': 'packnet_sfm_tpu_torch/csrc/san_conv.cu',
         'replaces': 'packnet_sfm_tpu/ops/pallas/san_conv.py:184',
@@ -1046,7 +1115,10 @@ def main():
                              **{k: v['san_dgrad']
                                 for k, v in disk_launches.items()},
                              **{k: v['san_dgrad']
-                                for k, v in dual_launches.items()}},
+                                for k, v in dual_launches.items()},
+                             **{k: v['san_dgrad']
+                                for k, v in kitti_launches.items()
+                                if v['san_dgrad']}},
         'reduce_launches': reduce_totals['san_dgrad'],
         'max_abs_err': dmax_err['float32'],
         'max_abs_err_bf16': dmax_err['bfloat16'],
@@ -1056,7 +1128,12 @@ def main():
         'bound_ms': dg_tot['bound_ms'], 'bound_by': by(dg_tot),
         'library_ms': dg_tot['library_ms'],
         'graph_ms': dg_tot['graph_ms'],
-        'library_graph_ms': dg_tot['library_graph_ms']}] + selfsup_rows +
+        'library_graph_ms': dg_tot['library_graph_ms'],
+        'kitti_k2_step_graph_ms': kitti_convs['dgrad']['graph_ms'],
+        'kitti_k2_step_library_graph_ms':
+            kitti_convs['dgrad']['library_graph_ms'],
+        'kitti_k2_step_bound_ms': kitti_convs['dgrad']['bound_ms']}] +
+        selfsup_rows +
         generic_rows + gather_rows}))
     log(card)
     print(json.dumps({'ok': True, 'device': {
@@ -2405,47 +2482,15 @@ class EpochRecorder:
 def overfit_step_check(overrides, batch):
     """One float32 step of configs/overfit_synthetic.yaml under `overrides`
     on `batch` (one batch of its train loader, on the card: the path's own
-    shapes) through the kernels, through every plain version under plain
-    autograd, and (the control) plain on the batch's images in reverse
-    order; the photometric maps in float32 too (on the path they are
-    bf16 plain code, no kernel). Held to the train step's limits; each of
-    the path's kernels must launch in the kernels' step. Returns the
-    readings."""
-    from packnet_sfm_tpu_torch import train as port_train
-    from packnet_sfm_tpu_torch.ops.kernels import san_conv, warp
-    _, model = port_train.build(OVERFIT_CONFIG, batch['rgb'].device, seed=0,
-                                overrides=overrides + [
-                                    'tpu.photometric_dtype', 'float32'])
-    kernels = {'san_fwd': san_conv.masked_conv2d,
-               'san_dgrad': san_conv.masked_conv2d_dgrad,
-               'warp_out': warp.warp_bilinear_out,
-               'warp_dgrid': warp.warp_bilinear_dgrid}
-    before = {k: fn.launches for k, fn in kernels.items()}
-    ((loss_k, gk),) = step_gradients(model, ((False, batch),))
-    launched = {k: fn.launches - before[k] for k, fn in kernels.items()}
-    (loss_p, gp), (_, gr) = step_gradients(
-        model, ((True, batch), (True, reversed_batch(batch))))
-    del model
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    grad_check = compare_grads(gk, gp)
-    order_check = compare_grads(gr, gp)
-    log('overfit step fp32 B{} {}x{} (FiLM, input depth, PoseNet over {} '
-        'contexts), kernels vs plain: loss {:.6f} vs {:.6f} (rel {:.2e}); '
-        'per gradient leaf max|err|/max|g| {:.3e} (at {}), |err|/|g| {:.3e}; '
-        'zero leaves {:.2e} of the largest gradient; launches {}. Plain vs '
-        'plain on the reversed batch: {:.3e} (at {}), {:.3e}, {:.2e}'.format(
-            *batch['rgb'].shape[:3], len(batch['rgb_context']), loss_k,
-            loss_p, loss_rel, *grad_check, launched, *order_check))
-    rel, _, norm, zero_leaf = grad_check
-    if loss_rel > TRAIN_LOSS_RTOL or rel > TRAIN_GRAD_REL or \
-            norm > TRAIN_GRAD_NORM or zero_leaf > 1e-6:
-        raise AssertionError('overfit step through the kernels disagrees '
-                             'with the plain versions')
-    if batch['rgb'].is_cuda and not all(launched.values()):
-        raise AssertionError('overfit step skipped a kernel: {}'.format(
-            launched))
-    return {'loss_rel': loss_rel, 'grad': grad_check, 'launches': launched,
-            'plain_reversed_batch_vs_plain': order_check}
+    shapes) through the kernels against every plain version
+    (`kernel_step_check`), the photometric maps in float32 too (on the path
+    they are bf16 plain code, no kernel). Returns the readings."""
+    readings, _ = kernel_step_check(
+        'overfit', OVERFIT_CONFIG, overrides + ['tpu.photometric_dtype',
+                                                'float32'], batch,
+        {'san_fwd': CONVS_PER_FORWARD, 'san_dgrad': DGRADS_PER_STEP,
+         'warp_out': WARPS_PER_STEP, 'warp_dgrid': WARPS_PER_STEP})
+    return readings
 
 
 def train_disk_phase(card, reset_counts, read_counts):
@@ -2819,7 +2864,7 @@ def stats_rel(got, want):
 def dual_step_rate(qat, batch, n_timed=5):
     """(ms a step, kernels the card runs a step) of the dual-head YAML's
     train step (B8 384x640 bf16) on a batch held on the card, under
-    model.params.qat `qat`: 2 steps of warm-up, `n_timed` timed, one
+    model.params.qat `qat`: 4 steps of warm-up, `n_timed` timed, one
     more under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2829,12 +2874,7 @@ def dual_step_rate(qat, batch, n_timed=5):
                           overrides=['model.params.qat', qat],
                           batches=[batch])
     step = run['trainer'].train_step
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_timed):
-        step(batch)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / n_timed
+    ms = step_alone_ms(step, batch, n_timed)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step(batch)
@@ -3117,6 +3157,701 @@ def dual_head_phase(card, dev, reset_counts, read_counts):
     with open('chiprun_out/chip_smoke_dual_head.json', 'w') as f:
         json.dump(summary, f, indent=1)
     return launches
+
+
+
+def seeded_resnet18_state_dict(seed):
+    """A torchvision-layout resnet18 state_dict (conv1, bn1, layer1-4 with
+    their downsample branches, fc) of numpy-seeded values: kaiming-normal
+    convs, BN scales and variances in [0.5, 1.5], small biases and means.
+    It stands for the ImageNet file that 'pt' encoders load."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        sd[name] = torch.from_numpy((rng.randn(cout, cin, k, k) * np.sqrt(
+            2.0 / (cout * k * k))).astype(np.float32))
+
+    def bn(name, c):
+        for leaf, v in (('weight', rng.uniform(0.5, 1.5, c)),
+                        ('bias', rng.randn(c) * 0.1),
+                        ('running_mean', rng.randn(c) * 0.1),
+                        ('running_var', rng.uniform(0.5, 1.5, c))):
+            sd['{}.{}'.format(name, leaf)] = torch.from_numpy(
+                v.astype(np.float32))
+        sd[name + '.num_batches_tracked'] = torch.tensor(0)
+
+    conv('conv1.weight', 64, 3, 7)
+    bn('bn1', 64)
+    cin = 64
+    for stage, width in enumerate((64, 128, 256, 512)):
+        for b in range(2):
+            pre = 'layer{}.{}.'.format(stage + 1, b)
+            conv(pre + 'conv1.weight', width, cin, 3)
+            bn(pre + 'bn1', width)
+            conv(pre + 'conv2.weight', width, width, 3)
+            bn(pre + 'bn2', width)
+            if cin != width:
+                conv(pre + 'downsample.0.weight', width, cin, 1)
+                bn(pre + 'downsample.1', width)
+            cin = width
+    sd['fc.weight'] = torch.from_numpy((rng.randn(1000, 512) * 0.01).astype(
+        np.float32))
+    sd['fc.bias'] = torch.zeros(1000)
+    return sd
+
+
+def step_alone_ms(step, batch, n_timed=5):
+    """ms of one call of a Trainer's train step on a batch held on the
+    card, after 2 calls of warm-up."""
+    import torch
+    for _ in range(2):
+        step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        step(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_timed
+
+
+def kernel_step_check(tag, config, overrides, batch, want_launches):
+    """One float32 step of `config` under `overrides` on `batch` through
+    the kernels, through every plain version under plain autograd, and
+    (the control) plain on the batch's samples in reverse order: the loss
+    is the same function, only sums change order. Held to the train
+    step's limits; the step's launches must be `want_launches`. Returns
+    the readings and the recorded launches of the warp and photometric
+    kernels: ('warp', (img, grid, mode, g)) and ('photo', (x, y, g,
+    need_dy)) for the backward, ('photo', (x, y, None, False)) for the
+    forward."""
+    from packnet_sfm_tpu_torch import train as port_train
+    from packnet_sfm_tpu_torch.ops.kernels import photometric, san_conv, warp
+    _, model = port_train.build(config, batch['rgb'].device, seed=0,
+                                overrides=['tpu.compute_dtype', 'float32'] +
+                                overrides)
+    kernels = {'san_fwd': san_conv.masked_conv2d,
+               'san_dgrad': san_conv.masked_conv2d_dgrad,
+               'warp_out': warp.warp_bilinear_out,
+               'warp_dgrid': warp.warp_bilinear_dgrid,
+               'photo_fwd': photometric.photometric_fwd,
+               'photo_bwd': photometric.photometric_bwd}
+    before = {k: fn.launches for k, fn in kernels.items()}
+    rec = {'dgrid': [], 'fwd': [], 'bwd': []}
+    with recording(warp, '_launch_dgrid', rec['dgrid']), \
+            recording(photometric, '_launch_fwd', rec['fwd']), \
+            recording(photometric, '_launch_bwd', rec['bwd']):
+        ((loss_k, gk),) = step_gradients(model, ((False, batch),))
+    launched = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    (loss_p, gp), (_, gr) = step_gradients(
+        model, ((True, batch), (True, reversed_batch(batch))))
+    del model
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_check = compare_grads(gk, gp)
+    order_check = compare_grads(gr, gp)
+    log('{} fp32 step B{} {}x{}, kernels vs plain: loss {:.6f} vs {:.6f} '
+        '(rel {:.2e}); per gradient leaf max|err|/max|g| {:.3e} (at {}), '
+        '|err|/|g| {:.3e}; zero leaves {:.2e} of the largest gradient; '
+        'launches {}. Plain vs plain on the reversed batch: {:.3e} (at {}), '
+        '{:.3e}, {:.2e}'.format(tag, *batch['rgb'].shape[:3], loss_k,
+                                loss_p, loss_rel, *grad_check,
+                                {k: v for k, v in launched.items() if v},
+                                *order_check))
+    rel, _, norm, zero_leaf = grad_check
+    if loss_rel > TRAIN_LOSS_RTOL or rel > TRAIN_GRAD_REL or \
+            norm > TRAIN_GRAD_NORM or zero_leaf > 1e-6:
+        raise AssertionError('{} step through the kernels disagrees with '
+                             'the plain versions'.format(tag))
+    want = dict.fromkeys(launched, 0)
+    want.update(want_launches)
+    if launched != want:
+        raise AssertionError('{} fp32 step: launches {}, expected {}'.format(
+            tag, launched, want))
+    cases = [('warp', (img, grid, mode, g)) for img, grid, g, mode in
+             rec['dgrid']]
+    cases += [('photo', (x, y, g, need_dy)) for x, y, g, need_dy, *_ in
+              rec['bwd']]
+    cases += [('photo', (x, y, None, False)) for x, y, *_ in rec['fwd']]
+    return {'loss_rel': loss_rel, 'grad': grad_check, 'launches': launched,
+            'plain_reversed_batch_vs_plain': order_check}, cases
+
+
+def check_recorded_kernels(tag, cases):
+    """The warp and photometric kernels against their plain versions on a
+    step's recorded inputs, under phase S's rules: the warp's out and dgrid
+    atol = rtol = 1e-6 (x max|ref| for the atol), the photometric forward
+    atol = rtol = 1e-6, its backward atol 1e-6 x max|ref|, rtol 1e-5.
+    Returns the max |err| of each kernel."""
+    import torch
+    from packnet_sfm_tpu_torch.ops.kernels import photometric, warp
+    err = {}
+
+    def note(key, name, a, b, atol, rtol):
+        err[key] = max(err.get(key, 0.0), check_close(
+            '{} {}'.format(tag, name), a, b, atol, rtol))
+
+    for kind, args in cases:
+        if kind == 'warp':
+            img, grid, mode, g = args
+            got = (warp.warp_bilinear_out(img, grid, mode),
+                   warp.warp_bilinear_dgrid(img, grid, g, mode))
+            torch.cuda.synchronize()
+            want = (warp.bilinear_warp_reference(img, grid, mode)[0],
+                    warp.warp_dgrid_reference(img, grid, g, mode))
+            for nm, a, b in zip(('warp_out', 'warp_dgrid'), got, want):
+                note(nm, nm, a, b, 1e-6 * max(float(b.float().abs().max()),
+                                              1e-30), 1e-6)
+            continue
+        x, y, g, need_dy = args
+        got = photometric.photometric_fwd(x, y)
+        torch.cuda.synchronize()
+        note('photo_fwd', 'photometric fwd', got,
+             photometric.photometric_fwd_plain(x, y), 1e-6, 1e-6)
+        if g is None:
+            continue
+        got = photometric.photometric_bwd(x, y, g, need_dy)
+        torch.cuda.synchronize()
+        want = photometric.photometric_bwd_plain(x, y, g, need_dy)
+        for a, b in zip(got, want):
+            if b is not None:
+                note('photo_bwd', 'photometric bwd', a, b,
+                     1e-6 * float(b.abs().max()), 1e-5)
+    return err
+
+
+def kitti_conv_rows(convs, dtype, gen):
+    """The masked-conv kernels at K2's shapes: each forward conv (fp32 and
+    bf16) and each dgrad (those whose input needs a gradient) against its
+    plain version under section 2's rule, with exact zeros at inactive
+    sites; then, in the path's dtype, each launch replayed in a CUDA graph
+    beside cuDNN's call (F.conv2d times the mask; conv2d_input) and the
+    bound. Returns (max errors, forward rows, dgrad rows, launch paths)."""
+    import torch
+    import torch.nn.functional as F
+    from packnet_sfm_tpu_torch.ops.kernels import san_conv
+    dname = str(dtype).replace('torch.', '')
+    esize = torch.tensor([], dtype=dtype).element_size()
+    max_err = {}
+    paths = {}
+    fwd_rows, dg_rows = [], []
+    for i, (mod, mask, needs) in enumerate(convs):
+        k = mod.kernel.shape[0]
+        for dt in (torch.float32, torch.bfloat16):
+            key = str(dt).replace('torch.', '')
+            args = conv_inputs(mod, mask, dt, gen)
+            got = san_conv.masked_conv2d(*args)
+            torch.cuda.synchronize()
+            name = 'K2 conv {} {} {}'.format(i, tuple(args[0].shape[1:]),
+                                             key)
+            want = san_conv.masked_conv2d_reference(*args)
+            max_err['fwd_' + key] = max(max_err.get('fwd_' + key, 0.0),
+                                        check_kernel(name, got, want, dt))
+            if bool((got[(mask[..., 0] == 0)] != 0).any()):
+                raise AssertionError(name + ': nonzero output at an '
+                                     'inactive site')
+            if not needs:
+                continue
+            gargs = dgrad_inputs(mod, mask, dt, gen)
+            got = san_conv.masked_conv2d_dgrad(*gargs)
+            torch.cuda.synchronize()
+            max_err['dgrad_' + key] = max(
+                max_err.get('dgrad_' + key, 0.0), check_kernel(
+                    'K2 dgrad {} {}'.format(i, key), got,
+                    san_conv.masked_conv2d_dgrad_reference(*gargs), dt))
+            if bool((got[halo_empty(mask, k)[..., 0]] != 0).any()):
+                raise AssertionError('K2 dgrad {}: nonzero input gradient '
+                                     'with no active site in the halo'
+                                     .format(i))
+        # timings in the path's dtype, in a CUDA graph
+        x, mk, kern, bias = conv_inputs(mod, mask, dtype, gen)
+        _, _, cin, cout = kern.shape
+        B, H, W, _ = x.shape
+        path = launch_path(x, kern, False)
+        paths['fwd ' + path] = paths.get('fwd ' + path, 0) + 1
+        w_oihw = kern.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        x_cl, m_nchw = x.permute(0, 3, 1, 2), mk.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            graph = graph_time_ms(lambda: san_conv._launch(x, mk, kern, bias))
+            lib = graph_time_ms(lambda: F.conv2d(
+                x_cl, w_oihw, bias, padding=k // 2) * m_nchw)
+        active, act_rows, x_rows, _ = site_stats(mk, k)
+        nbytes = (x_rows * W * cin + kern.numel() + bias.numel() +
+                  B * H * W * cout) * esize + mk.numel() * 4
+        b_all, b_ms, o_ms = bound(nbytes, 2.0 * k * k * cin * cout * active,
+                                  dname)
+        row = {'H': H, 'W': W, 'k': int(k), 'cin': int(cin),
+               'cout': int(cout), 'path': path, 'ms': graph,
+               'graph_ms': graph, 'library_ms': lib,
+               'library_graph_ms': lib, 'bound_ms': b_all,
+               'bytes_ms': b_ms, 'ops_ms': o_ms}
+        fwd_rows.append(row)
+        if not needs:
+            continue
+        gm, mk, kern = dgrad_inputs(mod, mask, dtype, gen)
+        path = launch_path(gm, kern, True)
+        paths['dgrad ' + path] = paths.get('dgrad ' + path, 0) + 1
+        g_cl = gm.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            graph = graph_time_ms(lambda: san_conv._launch_dgrad(gm, mk,
+                                                                 kern))
+            lib = graph_time_ms(lambda: torch.nn.grad.conv2d_input(
+                (B, cin, H, W), w_oihw, g_cl, padding=k // 2))
+        nbytes = (act_rows * W * cout + kern.numel() + B * H * W * cin) * \
+            esize + mk.numel() * 4
+        b_all, b_ms, o_ms = bound(nbytes, 2.0 * k * k * cin * cout * active,
+                                  dname)
+        dg_rows.append({**row, 'path': path, 'ms': graph, 'graph_ms': graph,
+                        'library_ms': lib, 'library_graph_ms': lib,
+                        'bound_ms': b_all, 'bytes_ms': b_ms,
+                        'ops_ms': o_ms})
+    return max_err, fwd_rows, dg_rows, paths
+
+
+def kitti_phase(card, dev, gen, reset_counts, read_counts):
+    """Phase K: KITTI and the rest of the self-supervised family (see the
+    module note). Returns ({run: launch counts} of the path runs, the
+    masked-conv timings at K2's levels)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from packnet_sfm_tpu_torch import eval as port_eval
+    from packnet_sfm_tpu_torch import train as port_train
+    from packnet_sfm_tpu_torch.config import parse_test_file
+    from packnet_sfm_tpu_torch.datasets.kitti import (
+        KITTIDataset, write_kitti_tree)
+    from packnet_sfm_tpu_torch.datasets.loader import (
+        default_collate, to_device_batch)
+    from packnet_sfm_tpu_torch.datasets.ncdb import DEFAULT_CALIB_A6
+    from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticDataset
+    from packnet_sfm_tpu_torch.datasets.transforms import parse_crop_borders
+    from packnet_sfm_tpu_torch.geometry.camera import FisheyeCamera
+    from packnet_sfm_tpu_torch.trainers.trainer import make_loader
+
+    summary = {'card': card, 'raw_shape': list(KITTI_RAW),
+               'frames': KITTI_FRAMES}
+    launches = {}
+
+    def expect(run, got, **want_counts):
+        want = dict.fromkeys(got, 0)
+        want.update(want_counts)
+        if got != want:
+            raise AssertionError('{}: launches {}, expected {}'.format(
+                run, got, want))
+        launches[run] = got
+
+    env = {k: os.environ.get(k) for k in ('PACKNET_WEIGHTS_DIR',
+                                          'KITTI_CACHE_DIR')}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            os.environ['PACKNET_WEIGHTS_DIR'] = os.path.join(tmp, 'weights')
+            os.environ['KITTI_CACHE_DIR'] = os.path.join(tmp, 'kitti_cache')
+            os.makedirs(os.environ['PACKNET_WEIGHTS_DIR'])
+            torch.save(seeded_resnet18_state_dict(0), os.path.join(
+                os.environ['PACKNET_WEIGHTS_DIR'], 'resnet18-seeded.pth'))
+            root = os.path.join(tmp, 'kitti')
+            t0 = time.perf_counter()
+            write_kitti_tree(root, KITTI_RAW, KITTI_FRAMES, splits={
+                'train.txt': range(KITTI_FRAMES),
+                'san_train.txt': SAN_KITTI_TRAIN, 'val.txt': KITTI_VAL})
+            summary['write_tree_s'] = time.perf_counter() - t0
+            s = KITTIDataset(root, 'val.txt', depth_type='groundtruth',
+                             input_depth_type='velodyne')[0]
+            below = slice(int(KITTI_RAW[0] * 0.35) + 1, None)
+            summary['fill_below_horizon'] = {
+                'velodyne': float((s['input_depth'][below] > 0).mean()),
+                'groundtruth': float((s['depth'][below] > 0).mean())}
+            log('phase K tree: {} KITTI_raw frames at {}x{} with OXTS, '
+                'groundtruth PNG and velodyne .npz ({:.3f} / {:.3f} fill '
+                'below the horizon) in {:.1f} s; seeded resnet18 weights in '
+                '$PACKNET_WEIGHTS_DIR'.format(
+                    KITTI_FRAMES, *KITTI_RAW,
+                    summary['fill_below_horizon']['groundtruth'],
+                    summary['fill_below_horizon']['velodyne'],
+                    summary['write_tree_s']))
+
+            # K1: train_kitti.yaml as written (bf16 convs and maps, B16
+            # 192x640, DepthResNet + PoseResNet '18pt' from the seeded
+            # file) through train.fit: 2 warp forward and 2 dgrid launches
+            # a step, none in validation
+            k1_data = ['datasets.train.path', [root],
+                       'datasets.train.split', ['train.txt'],
+                       'datasets.validation.path', [root],
+                       'datasets.validation.split', ['val.txt'],
+                       'datasets.test.path', [root],
+                       'datasets.test.split', ['val.txt'],
+                       'checkpoint.filepath', '']
+            logger = EpochRecorder()
+            reset_counts()
+            t0 = time.perf_counter()
+            k1 = port_train.fit(KITTI_CONFIG, dev, k1_data + [
+                'arch.max_epochs', K1_EPOCHS], logger=logger)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            got = read_counts()
+            loader = make_loader(k1.config, 'train')
+            steps = K1_EPOCHS * len(loader)
+            expect('kitti_k1_fit', got, warp_out=WARPS_PER_STEP * steps,
+                   warp_dgrid=WARPS_PER_STEP * steps)
+            losses = [logger.history[e]['train/loss']
+                      for e in range(K1_EPOCHS)]
+            if k1.step != steps or k1.optimizer.count != steps or \
+                    not all(np.isfinite(losses)):
+                raise AssertionError('K1 fit: {} steps, {} updates, losses '
+                                     '{}'.format(k1.step, k1.optimizer.count,
+                                                 losses))
+            batch = to_device_batch(next(iter(loader)), dev)
+            bs, shape = batch['rgb'].shape[0], tuple(batch['rgb'].shape[1:3])
+            if len(batch['rgb_context']) != 2 or (bs, shape) != (
+                    int(k1.config.datasets.train.batch_size),
+                    tuple(k1.config.datasets.augmentation.image_shape)):
+                raise AssertionError('K1 batch: B{} {} with {} contexts'
+                                     .format(bs, shape,
+                                             len(batch['rgb_context'])))
+            last = logger.history[K1_EPOCHS - 1]
+            alone = step_alone_ms(k1.train_step, batch)
+            summary['k1'] = {
+                'fit_s': fit_s, 'steps': steps, 'losses': losses,
+                'val_abs_rel': [logger.history[e]['val/depth-abs_rel']
+                                for e in range(K1_EPOCHS)],
+                'img_per_s_with_data': last['train/img_per_s'],
+                'data_ms_per_step': last['train/data_ms_per_step'],
+                'step_ms_per_step': last['train/step_ms_per_step'],
+                'step_alone_ms': alone, 'img_per_s_step_alone':
+                bs * 1e3 / alone}
+            log('K1 train_kitti.yaml through train.fit, B{} {}x{} bf16: {} '
+                'epochs of {} steps in {:.1f} s, launches {}, epoch losses '
+                '{}; epoch {}: {:.2f} img/s with data, data {:.1f} ms | step '
+                '{:.1f} ms a step; the step alone {:.2f} ms = {:.2f} img/s; '
+                '{}'.format(bs, *shape, K1_EPOCHS, len(loader), fit_s,
+                            {k: v for k, v in got.items() if v},
+                            ['{:.4f}'.format(v) for v in losses],
+                            K1_EPOCHS - 1, last['train/img_per_s'],
+                            last['train/data_ms_per_step'],
+                            last['train/step_ms_per_step'], alone,
+                            bs * 1e3 / alone, card))
+            del k1
+
+            # the loss falls over 10 steps on one batch; then the float32
+            # variant (tpu.photometric_dtype float32, tpu.use_pallas): 10
+            # photometric forward and 8 backward launches a step too
+            reset_counts()
+            run = port_train.main(KITTI_CONFIG, dev, n_steps=10,
+                                  batches=[batch], overrides=k1_data)
+            got = read_counts()
+            expect('kitti_k1_one_batch', got, warp_out=WARPS_PER_STEP * 10,
+                   warp_dgrid=WARPS_PER_STEP * 10)
+            if not (np.all(np.isfinite(run['losses'])) and
+                    run['losses'][-1] < run['losses'][0]):
+                raise AssertionError('K1 loss did not fall over 10 steps: '
+                                     '{}'.format(run['losses']))
+            summary['k1']['one_batch_losses'] = run['losses']
+            reset_counts()
+            run = port_train.main(KITTI_CONFIG, dev, n_steps=2,
+                                  batches=[batch],
+                                  overrides=k1_data + FP32_MAPS)
+            got = read_counts()
+            expect('kitti_k1_fp32_maps', got,
+                   warp_out=WARPS_PER_STEP * 2, warp_dgrid=WARPS_PER_STEP * 2,
+                   photo_fwd=PHOTO_FWD_PER_STEP * 2,
+                   photo_bwd=PHOTO_BWD_PER_STEP * 2)
+            log('K1 10 steps on one batch: loss {:.4f} -> {:.4f}; the float32 '
+                'maps through the fused kernels, 2 steps: losses {}'.format(
+                    summary['k1']['one_batch_losses'][0],
+                    summary['k1']['one_batch_losses'][-1],
+                    ['{:.4f}'.format(v) for v in run['losses']]))
+            del run
+            per_step = {'warp_out': WARPS_PER_STEP,
+                        'warp_dgrid': WARPS_PER_STEP,
+                        'photo_fwd': PHOTO_FWD_PER_STEP,
+                        'photo_bwd': PHOTO_BWD_PER_STEP}
+            summary['k1']['fp32_step'], cases = kernel_step_check(
+                'K1 (float32 maps)', KITTI_CONFIG, k1_data + FP32_MAPS,
+                batch, per_step)
+            summary['k1']['kernels_vs_plain'] = check_recorded_kernels(
+                'K1', cases)
+            log('K1 kernels vs plain on the step\'s own inputs: {}'.format(
+                {k: '{:.3e}'.format(v) for k, v in
+                 summary['k1']['kernels_vs_plain'].items()}))
+            del batch, cases
+
+            # K2: train_resnet_san_kitti.yaml (B4 on the 352x1216 crop,
+            # sparse-silog, san_row_window -1 calibrated on the tree) with
+            # FiLM on: as written its use_film false builds no SAN branch
+            # and reads no LiDAR (in the JAX package too)
+            ck = os.path.join(tmp, 'k2')
+            k2_data = ['datasets.train.path', [root],
+                       'datasets.train.split', ['san_train.txt'],
+                       'datasets.validation.path', [root, root],
+                       'datasets.validation.split', ['val.txt', 'val.txt'],
+                       'model.depth_net.use_film', True,
+                       'arch.max_epochs', 1,
+                       'arch.eval_subset_size', len(KITTI_VAL),
+                       'checkpoint.filepath', ck]
+            logger = EpochRecorder()
+            reset_counts()
+            t0 = time.perf_counter()
+            k2 = port_train.fit(SAN_KITTI_CONFIG, dev, k2_data,
+                                logger=logger)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            got = read_counts()
+            loader = make_loader(k2.config, 'train')
+            steps = len(loader)
+            n_val = len(KITTI_VAL)
+            # a step runs the SAN once (the RGB+D pass); with LiDAR: the
+            # first validation dataset's frames, one quick eval of them and
+            # the logged images' batch (B1); the second dataset has none
+            expect('kitti_k2_fit', got,
+                   san_fwd=CONVS_PER_FORWARD * (steps + 2 * n_val + 1),
+                   san_dgrad=DGRADS_PER_STEP * steps)
+            frac = float(k2.config.model.depth_net.san_row_window)
+            batch = to_device_batch(next(iter(loader)), dev)
+            k2_bs = int(k2.config.datasets.train.batch_size)
+            left, top, right, bottom = parse_crop_borders(
+                k2.config.datasets.augmentation.crop_train_borders, KITTI_RAW)
+            H = batch['rgb'].shape[1]
+            Hw = int(H * frac) // 32 * 32
+            val = k2.last_val_metrics
+            prefixes = sorted({k.split('/')[0] for k in val if '/' in k})
+            if tuple(batch['rgb'].shape[:3]) != (k2_bs, bottom - top,
+                                                 right - left) or \
+                    not 0 < Hw < H or len(prefixes) != 2 or \
+                    k2.step != steps or k2.optimizer.count != steps or \
+                    not np.isfinite(logger.history[0]['train/loss']):
+                raise AssertionError('K2 fit: batch {}, row window {} of {}, '
+                                     'validations {}, {} steps, loss {}'
+                                     .format(tuple(batch['rgb'].shape), Hw,
+                                             H, prefixes, k2.step,
+                                             logger.history[0]))
+            alone = step_alone_ms(k2.train_step, batch)
+            summary['k2'] = {
+                'fit_s': fit_s, 'steps': steps, 'row_window': frac,
+                'row_window_rows': Hw,
+                'loss': logger.history[0]['train/loss'],
+                'val_abs_rel': {p: val[p + '/depth-abs_rel']
+                                for p in prefixes},
+                'img_per_s_with_data': logger.history[0]['train/img_per_s'],
+                'data_ms_per_step': logger.history[0][
+                    'train/data_ms_per_step'],
+                'step_ms_per_step': logger.history[0][
+                    'train/step_ms_per_step'],
+                'step_alone_ms': alone,
+                'img_per_s_step_alone': k2_bs * 1e3 / alone}
+            log('K2 train_resnet_san_kitti.yaml (FiLM on) through train.fit, '
+                'B{} {}x{} bf16, row window {} of {} rows (calibrated '
+                '{:.4f}): {} steps in {:.1f} s, launches {}; loss {:.4f}; '
+                'val abs_rel {}; {:.2f} img/s with data, data {:.1f} ms | '
+                'step {:.1f} ms a step; the step alone {:.2f} ms = {:.2f} '
+                'img/s; {}'.format(
+                    k2_bs, H, right - left, Hw, H, frac, steps, fit_s,
+                    {k: v for k, v in got.items() if v},
+                    summary['k2']['loss'],
+                    {p: '{:.4f}'.format(v) for p, v in
+                     summary['k2']['val_abs_rel'].items()},
+                    summary['k2']['img_per_s_with_data'],
+                    summary['k2']['data_ms_per_step'],
+                    summary['k2']['step_ms_per_step'], alone,
+                    k2_bs * 1e3 / alone, card))
+            dtype = k2.model.depth_net.encoder.Conv_0.dtype
+            convs = path_convs(k2.model, batch, train=True)
+            run_dir = os.path.dirname(k2.config.checkpoint.filepath)
+            ckpts = sorted(f for f in os.listdir(run_dir)
+                           if f.endswith('.ckpt'))
+            del k2
+            if len(convs) != CONVS_PER_FORWARD or sum(
+                    n for _, _, n in convs) != DGRADS_PER_STEP or \
+                    len(ckpts) != 1:
+                raise AssertionError('K2: {} masked convs, {} with a '
+                                     'gradient, checkpoints {}'.format(
+                                         len(convs),
+                                         sum(n for _, _, n in convs), ckpts))
+            errs, fwd_rows, dg_rows, paths = kitti_conv_rows(convs, dtype,
+                                                             gen)
+            del convs
+            levels = {'forward': level_lines(fwd_rows, 'K2 forward'),
+                      'dgrad': level_lines(dg_rows, 'K2 dgrad')}
+            tot = {d: {k: sum(r[k] for r in rows) for k in
+                       ('graph_ms', 'library_graph_ms', 'bound_ms',
+                        'bytes_ms', 'ops_ms')}
+                   for d, rows in (('forward', fwd_rows),
+                                   ('dgrad', dg_rows))}
+            summary['k2'].update(conv_max_err=errs, conv_paths=paths,
+                                 levels=levels, conv_totals=tot)
+            log('K2 masked convs at their own shapes (B{}, the row window), '
+                'kernels vs plain max |err| {}; launch paths {}; a step in a '
+                'CUDA graph: forward {:.4f} ms (cuDNN {:.4f}, bound {:.4f}), '
+                'dgrad {:.4f} ms (cuDNN {:.4f}, bound {:.4f}); {}'.format(
+                    k2_bs, {k: '{:.3e}'.format(v) for k, v in errs.items()},
+                    paths,
+                    tot['forward']['graph_ms'],
+                    tot['forward']['library_graph_ms'],
+                    tot['forward']['bound_ms'], tot['dgrad']['graph_ms'],
+                    tot['dgrad']['library_graph_ms'],
+                    tot['dgrad']['bound_ms'], card))
+
+            # K2's eval: eval_resnet_san_kitti.yaml over the fit's
+            # checkpoint on the tree (garg crop, top-center, the 352x1216
+            # crop_eval_borders; B1 with LiDAR), its save pass included:
+            # 30 launches a frame in each pass; in float32 through the
+            # kernels against the plain versions
+            ckpt = os.path.join(run_dir, ckpts[0])
+            ev = ['datasets.test.path', [root], 'datasets.test.split',
+                  ['val.txt'], 'save.folder', os.path.join(tmp, 'outputs')]
+            # the checkpoint's test split, merged with the eval YAML's,
+            # keeps the training YAML's two entries (the eval YAML's
+            # dataset twice): B1 over all its frames, each pass
+            n_test = len(make_loader(parse_test_file(
+                ckpt, SAN_KITTI_EVAL, ev)[0], 'test'))
+            reset_counts()
+            m = port_eval.test(ckpt, SAN_KITTI_EVAL, device=dev,
+                               overrides=ev)
+            got = read_counts()
+            expect('kitti_k2_eval', got,
+                   san_fwd=CONVS_PER_FORWARD * 2 * n_test)
+            f32 = ev[:4] + ['save.folder', '', 'tpu.compute_dtype',
+                            'float32']
+            mk = port_eval.test(ckpt, SAN_KITTI_EVAL, device=dev,
+                                overrides=f32)
+            with plain_versions():
+                mp = port_eval.test(ckpt, SAN_KITTI_EVAL, device=dev,
+                                    overrides=f32)
+            err = max(0.0 if mk[k] == mp[k] else abs(mk[k] - mp[k])
+                      for k in mp)
+            saved = sum(len(f) for _, _, f in os.walk(os.path.join(
+                tmp, 'outputs')))
+            summary['k2']['eval'] = {'metrics': dict(m),
+                                     'fp32_kernels_vs_plain_max_err': err}
+            for name, r in (('bf16', m), ('fp32', mk)):
+                if len(r) != 6 * 7 + 1 or r.skipped or any(
+                        np.isnan(v) for v in r.values()):
+                    raise AssertionError('K2 {} eval: {}'.format(name, r))
+            log('K2 eval_resnet_san_kitti.yaml over the checkpoint, {} '
+                'frames B1 at the 352x1216 crop: abs_rel {:.4f}, '
+                'depth_gt-abs_rel {:.4f}; {} masked-conv launches with the '
+                'save pass ({} files written); fp32 kernels vs plain max '
+                '|err| {:.3e} over the metrics'.format(
+                    n_test, m['depth-abs_rel'], m['depth_gt-abs_rel'],
+                    got['san_fwd'], saved, err))
+            if sorted(mk) != sorted(mp) or err > 1e-5:
+                raise AssertionError('K2 eval through the kernels disagrees '
+                                     'with the plain versions')
+            del batch
+
+            # K3: the fisheye camera, train_kitti.yaml's SelfSupModel on
+            # seeded batches carrying NCDB's A6 calibration (384x640, 2
+            # contexts): the loss takes the fisheye camera, whose grids
+            # fall far outside [-1, 1]; then VelSupModel on the Synthetic
+            # dataset's batch with its pose_context
+            intr = DEFAULT_CALIB_A6['intrinsic']
+            fb = port_eval.make_batches(K3_SHAPE, K3_BATCH, 1, seed=1,
+                                        device=dev, contexts=2)[0]
+            fb['distortion_coeffs'] = {
+                'k': torch.tensor(intr[0:7], device=dev).repeat(K3_BATCH, 1),
+                **{key: torch.full((K3_BATCH,), float(intr[i]), device=dev)
+                   for i, key in ((7, 's'), (8, 'div'), (9, 'ux'),
+                                  (10, 'uy'))}}
+            k3 = ['datasets.augmentation.image_shape', K3_SHAPE,
+                  'datasets.train.batch_size', K3_BATCH]
+            reset_counts()
+            run = port_train.main(KITTI_CONFIG, dev, n_steps=3,
+                                  batches=[fb], overrides=k3)
+            got = read_counts()
+            expect('kitti_k3_fisheye', got, warp_out=WARPS_PER_STEP * 3,
+                   warp_dgrid=WARPS_PER_STEP * 3)
+            if not np.all(np.isfinite(run['losses'])):
+                raise AssertionError('K3 fisheye losses: {}'.format(
+                    run['losses']))
+            fish = {'losses': run['losses']}
+            del run
+            fish['fp32_step'], cases = kernel_step_check(
+                'K3 fisheye (float32 maps)', KITTI_CONFIG, k3 + FP32_MAPS,
+                fb, per_step)
+            grids = [c[1][1] for c in cases if c[0] == 'warp']
+            # where the step's rays land, in pixels of the 384x640 frame
+            px = [((gr + 1) * gr.new_tensor([K3_SHAPE[1] - 1,
+                                             K3_SHAPE[0] - 1]) / 2)
+                  for gr in grids]
+            fish['grid_pixel_range'] = [
+                [float(p[..., i].min()), float(p[..., i].max())]
+                for p in px for i in (0, 1)]
+            fish['kernels_vs_plain'] = check_recorded_kernels('K3', cases)
+            # on a 24x40 frame the same calibration sends the rays
+            # outside [-1, 1] (the zeros padding): the warp kernels against
+            # their plain versions on such grids
+            cam = FisheyeCamera.create(fb['distortion_coeffs'],
+                                       image_size=(24, 40))
+            depth = torch.rand(K3_BATCH, 24, 40, 1, device=dev,
+                               generator=gen) * 20 + 1
+            grid = cam.project(cam.reconstruct(depth, 'c'), 'c')
+            small = [('warp', (torch.rand(K3_BATCH, 24, 40, 3, device=dev,
+                                          generator=gen), grid, 'zeros',
+                               torch.randn(K3_BATCH, 24, 40, 3, device=dev,
+                                           generator=gen)))]
+            fish['small_grid_outside_share'] = float(
+                (grid.abs() > 1).any(-1).float().mean())
+            fish['kernels_vs_plain_small_grid'] = check_recorded_kernels(
+                'K3 24x40', small)
+            summary['k3_fisheye'] = fish
+            log('K3 fisheye SelfSupModel B{} {}x{} (A6 calibration): losses '
+                '{}; the warp grids land on x, y pixels {} (near ux, uy); '
+                'kernels vs plain on the step\'s own inputs {}; on a 24x40 '
+                'frame {:.3f} of the A6 grid points fall outside [-1, 1], '
+                'kernels vs plain there {}'.format(
+                    K3_BATCH, *K3_SHAPE,
+                    ['{:.4f}'.format(v) for v in fish['losses']],
+                    ['{:.2f}-{:.2f}'.format(*r) for r in
+                     fish['grid_pixel_range']],
+                    {k: '{:.3e}'.format(v) for k, v in
+                     fish['kernels_vs_plain'].items()},
+                    fish['small_grid_outside_share'],
+                    {k: '{:.3e}'.format(v) for k, v in
+                     fish['kernels_vs_plain_small_grid'].items()}))
+            if fish['small_grid_outside_share'] < 0.5:
+                raise AssertionError('the 24x40 A6 grid: {:.3f} outside'
+                                     .format(fish['small_grid_outside_share']))
+            del fb, cases
+            syn = SyntheticDataset(num_samples=K3_BATCH, height=shape[0],
+                                   width=shape[1])
+            vb = to_device_batch(default_collate(
+                [syn[i] for i in range(K3_BATCH)]), dev)
+            velsup = ['model.name', 'VelSupModel',
+                      'datasets.train.batch_size', K3_BATCH]
+            reset_counts()
+            run = port_train.main(KITTI_CONFIG, dev, n_steps=1,
+                                  batches=[vb], overrides=velsup)
+            got = read_counts()
+            expect('kitti_k3_velsup', got, warp_out=WARPS_PER_STEP,
+                   warp_dgrid=WARPS_PER_STEP)
+            vel = {'loss': run['losses'][0],
+                   'metrics': sorted(run['model'](vb)['metrics'])}
+            del run
+            if not np.isfinite(vel['loss']) or \
+                    'velocity_loss' not in vel['metrics']:
+                raise AssertionError('K3 VelSupModel: {}'.format(vel))
+            vel['fp32_step'], cases = kernel_step_check(
+                'K3 VelSupModel (float32 maps)', KITTI_CONFIG,
+                velsup + FP32_MAPS, vb, per_step)
+            vel['kernels_vs_plain'] = check_recorded_kernels('K3 VelSup',
+                                                             cases)
+            summary['k3_velsup'] = vel
+            log('K3 VelSupModel on the Synthetic pose_context, B{} {}x{}: '
+                'loss {:.4f}, metrics {}'.format(K3_BATCH, *shape,
+                                                 vel['loss'],
+                                                 vel['metrics']))
+            del vb, cases
+        finally:
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    summary['launches'] = launches
+    with open('chiprun_out/chip_smoke_kitti.json', 'w') as f:
+        json.dump(summary, f, indent=1, default=float)
+    return launches, summary['k2']['conv_totals']
 
 
 def time_forward(i, mod, mask, dtype, dname, esize, gen, san_conv):

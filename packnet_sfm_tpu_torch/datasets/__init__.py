@@ -1,16 +1,16 @@
 """
 Datasets of the port, and `setup_dataset`, the dispatch on the dataset name
 of the JAX package's datasets/__init__.py (reference: model_wrapper.py
-setup_dataset): 'ncdb' and 'Synthetic'. 'KITTI', 'DGP' and 'Image' are not
+setup_dataset): 'KITTI', 'ncdb' and 'Synthetic'. 'DGP' and 'Image' are not
 ported yet and raise.
 """
 
+from packnet_sfm_tpu_torch.datasets.kitti import KITTIDataset
 from packnet_sfm_tpu_torch.datasets.ncdb import NcdbDataset
 from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticDataset
 from packnet_sfm_tpu_torch.datasets.transforms import get_transforms
 
 _NOT_PORTED = {
-    'KITTI': 'ROADMAP.md section 1: the KITTI dataset',
     'DGP': 'ROADMAP.md section 1: the Image and DGP datasets',
     'Image': 'ROADMAP.md section 1: the Image and DGP datasets',
 }
@@ -52,7 +52,14 @@ def setup_dataset(split_cfg, augmentation_cfg, mode, seed=0):
         if name in _NOT_PORTED:
             raise NotImplementedError('dataset {!r} is not ported yet ({})'
                                       .format(name, _NOT_PORTED[name]))
-        if name == 'ncdb':
+        if name == 'KITTI':
+            datasets.append(KITTIDataset(
+                path=pick(paths, i, ''), split=pick(splits, i, ''),
+                depth_type=pick(depth_types, i, ''),
+                input_depth_type=pick(input_depth_types, i, ''),
+                back_context=back, forward_context=forward,
+                transform=transforms[i]))
+        elif name == 'ncdb':
             datasets.append(NcdbDataset(
                 path=pick(paths, i, ''), split=pick(splits, i, ''),
                 depth_type=pick(depth_types, i, ''),

@@ -15,11 +15,13 @@ datasets/ncdb_dataset.py):
 - the sample carries 'distortion_coeffs' (k, s, div, ux, uy) and the
   18-value intrinsics vector.
 
-Unlike the JAX reader, the NCDB_DEPTH_TYPE / NCDB_DEPTH_FOLDER environment
-overrides are not read: the config's depth_type names the folder.
+As in the JAX reader, the environment may name the GT depth:
+NCDB_DEPTH_FOLDER a folder, over any depth type; NCDB_DEPTH_TYPE a type,
+when the config gives none.
 """
 
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -111,8 +113,10 @@ class NcdbDataset:
         self.transform = transform
         self.use_mask = bool(use_mask)
         self.min_depth, self.max_depth = min_depth, max_depth
-        self.depth_folder = resolve_depth_folder(depth_type or
-                                                 DEFAULT_DEPTH_TYPE)
+        dt = depth_type or os.getenv('NCDB_DEPTH_TYPE', '').strip().lower() \
+            or DEFAULT_DEPTH_TYPE
+        self.depth_folder = os.getenv('NCDB_DEPTH_FOLDER', '').strip() or \
+            resolve_depth_folder(dt)
         self.input_depth_folder = (resolve_depth_folder(input_depth_type)
                                    if input_depth_type else None)
         self.entries = self._load_split(split)

@@ -1,11 +1,13 @@
 """
-The multi-view photometric loss for pinhole cameras (the JAX package's
-losses/photometric.py; reference losses/multiview_photometric_loss.py) and
-the scale-decay schedule it shares with the supervised loss.
+The multi-view photometric loss (the JAX package's losses/photometric.py;
+reference losses/multiview_photometric_loss.py) and the scale-decay
+schedule it shares with the supervised loss.
 
 - the network's sigmoids become depth by the linear bounded mapping inside
   the loss; smoothness runs on the sigmoids;
-- per-scale cameras with the principal-point rescale;
+- per-scale cameras with the principal-point rescale: pinhole from K, or
+  the VADAS fisheye from a `distortion` dict (k, s, div, ux, uy), whose
+  projection normalises by the level's size;
 - photometric map = alpha * SSIM distance + (1 - alpha) * L1, channel mean;
   with `photometric_dtype` 'bfloat16' the maps run in bf16 with float32
   SSIM moments (ops/ssim.py `clamp_variance`) and are cast back to float32;
@@ -19,14 +21,14 @@ the scale-decay schedule it shares with the supervised loss.
 
 When every scale has the target's resolution (`upsample_depth_maps`), each
 context is warped once for all scales (geometry/camera_utils.py
-`view_synthesis_multi`). The VADAS fisheye camera is not ported yet: a
-`distortion` argument raises NotImplementedError.
+`view_synthesis_multi`).
 """
 
 import numpy as np
 import torch
 
-from packnet_sfm_tpu_torch.geometry.camera import Camera, scale_intrinsics
+from packnet_sfm_tpu_torch.geometry.camera import (
+    Camera, FisheyeCamera, scale_intrinsics)
 from packnet_sfm_tpu_torch.geometry.camera_utils import (
     view_synthesis, view_synthesis_multi)
 from packnet_sfm_tpu_torch.ops.depth import (
@@ -92,9 +94,14 @@ class MultiViewPhotometricLoss:
 
     # ----------------------------------------------------------- cameras
     @staticmethod
-    def _build_cams(shape_full, shape_scaled, K, pose):
-        """Per-scale (cam, ref_cam); ref_cam carries the target->ref pose."""
+    def _build_cams(shape_full, shape_scaled, K, pose, distortion=None):
+        """Per-scale (cam, ref_cam); ref_cam carries the target->ref pose.
+        The fisheye camera when `distortion` is given, else the pinhole."""
         (H, W), (DH, DW) = shape_full, shape_scaled
+        if distortion is not None:
+            return tuple(FisheyeCamera.create(
+                distortion, Tcw=Tcw, image_size=(H, W)).scaled_to(
+                    DH, DW, H, W) for Tcw in (None, pose))
         Ks = scale_intrinsics(K, DW / float(W), DH / float(H))
         return Camera(Ks), Camera(Ks, pose)
 
@@ -152,11 +159,8 @@ class MultiViewPhotometricLoss:
                  distortion=None, mask=None, progress=0.0):
         """image: target [B,H,W,3]; context: list of reference images;
         inv_depths: per-scale network outputs (sigmoids by default); poses:
-        list of Pose (target -> context); K [B,3,3]. Returns {'loss',
-        'metrics'}."""
-        if distortion is not None:
-            raise NotImplementedError(
-                'the fisheye (VADAS) camera is not ported yet')
+        list of Pose (target -> context); K [B,3,3] or `distortion`, the
+        fisheye calibration dict. Returns {'loss', 'metrics'}."""
         n = ProgressiveScaling(self.progressive_scaling,
                                self.num_scales)(progress)
         sigmoids = inv_depths[:n]
@@ -177,14 +181,16 @@ class MultiViewPhotometricLoss:
         photometric_losses = [[] for _ in range(n)]
         for ref_image, pose in zip(context, poses):
             if fuse_scales:
-                cam, ref_cam = self._build_cams((H, W), (H, W), K, pose)
+                cam, ref_cam = self._build_cams((H, W), (H, W), K, pose,
+                                               distortion)
                 ref_i = ref_image.to(torch.bfloat16) if lowp else ref_image
                 warped = view_synthesis_multi(ref_i, depths, ref_cam, cam,
                                               padding_mode=self.padding_mode)
             else:
                 warped = []
                 for i, (DH, DW) in enumerate(scale_shapes):
-                    cam, ref_cam = self._build_cams((H, W), (DH, DW), K, pose)
+                    cam, ref_cam = self._build_cams((H, W), (DH, DW), K,
+                                                    pose, distortion)
                     ref_i = interpolate(ref_image, (DH, DW), 'bilinear', True)
                     if lowp:
                         ref_i = ref_i.to(torch.bfloat16)

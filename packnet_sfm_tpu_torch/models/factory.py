@@ -17,14 +17,17 @@ from packnet_sfm_tpu_torch.losses.supervised import SupervisedLoss
 from packnet_sfm_tpu_torch.models.generic import (
     GenericSfmModel, GenericSelfSupModel)
 from packnet_sfm_tpu_torch.models.sfm import (
-    SfmModel, SelfSupModel, SemiSupModel, SemiSupCompletionModel)
+    SfmModel, SelfSupModel, SemiSupModel, SemiSupCompletionModel,
+    VelSupModel)
+from packnet_sfm_tpu_torch.networks.depth.depth_resnet import DepthResNet
 from packnet_sfm_tpu_torch.networks.depth.ray_surface_resnet import (
     RaySurfaceResNet)
 from packnet_sfm_tpu_torch.networks.depth.resnet_san import ResNetSAN01
 from packnet_sfm_tpu_torch.networks.layers.resnet import Conv, BatchNorm
 from packnet_sfm_tpu_torch.networks.layers.san import (
     _MaskedConv, MaskedBatchNorm)
-from packnet_sfm_tpu_torch.networks.pose.pose_net import GroupNorm, PoseNet
+from packnet_sfm_tpu_torch.networks.pose.pose_net import (
+    GroupNorm, PoseNet, PoseResNet)
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -36,11 +39,14 @@ def compute_dtype(config):
 
 
 def setup_depth_net(config, dtype=torch.float32):
-    """Build cfg.model.depth_net (ResNetSAN01 or RaySurfaceResNet in this
-    port)."""
+    """Build cfg.model.depth_net (ResNetSAN01, DepthResNet or
+    RaySurfaceResNet in this port)."""
     if config.name == 'RaySurfaceResNet':
         return RaySurfaceResNet(version=config.get('version') or '18pt',
                                 dtype=dtype)
+    if config.name == 'DepthResNet':
+        return DepthResNet(version=config.get('version') or '18pt',
+                           dtype=dtype)
     if config.name != 'ResNetSAN01':
         raise NotImplementedError(
             'depth_net {!r} is not ported yet'.format(config.name))
@@ -54,8 +60,11 @@ def setup_depth_net(config, dtype=torch.float32):
 
 
 def setup_pose_net(config, dtype=torch.float32):
-    """Build cfg.model.pose_net (PoseNet only in this port, with its
-    default two contexts and euler rotations)."""
+    """Build cfg.model.pose_net: PoseNet (its default two contexts) or
+    PoseResNet."""
+    if config.name == 'PoseResNet':
+        return PoseResNet(version=config.get('version') or '18pt',
+                          dtype=dtype)
     if config.name != 'PoseNet':
         raise NotImplementedError(
             'pose_net {!r} is not ported yet'.format(config.name))
@@ -148,6 +157,10 @@ def setup_model(config):
                                                 0.5)),
             photometric_loss=setup_photometric_loss(config),
             **common)
+    if name == 'VelSupModel':
+        return VelSupModel(
+            depth_net, setup_photometric_loss(config),
+            velocity_loss_weight=loss_cfg.velocity_loss_weight, **common)
     if name == 'GenericSelfSupModel':
         # the fields the JAX factory passes: no depth range, no map dtype
         generic = GenericMultiViewPhotometricLoss(
@@ -176,8 +189,9 @@ def _xavier_(t, fan_in, fan_out, gen):
 @torch.no_grad()
 def init_weights(model, generator):
     """Random weights drawn from `generator`, with the flax initialisers'
-    distributions: kaiming fan-out normal for encoder convs, glorot uniform
-    for the others (PoseNet's too) and the masked convs, zero biases,
+    distributions: kaiming fan-out normal for encoder convs, lecun fan-in
+    truncated normal for the pose decoder's, glorot uniform for the others
+    (PoseNet's too) and the masked convs, zero biases,
     identity BN (running mean 0, var 1) and GroupNorm. The draws are not
     those of the JAX package's keys."""
     for mod in model.modules():
@@ -186,6 +200,12 @@ def init_weights(model, generator):
             if mod.init == 'kaiming':
                 std = math.sqrt(2.0 / (o * kh * kw))
                 mod.weight.normal_(0.0, std, generator=generator)
+            elif mod.init == 'lecun':
+                # flax's truncated normal at +-2 std, rescaled to unit
+                # variance
+                std = math.sqrt(1.0 / (i * kh * kw)) / .87962566103423978
+                torch.nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std,
+                                            2 * std, generator=generator)
             else:
                 _xavier_(mod.weight, i * kh * kw, o * kh * kw, generator)
             if mod.bias is not None:

@@ -1,14 +1,16 @@
 """
 SfM model family (the JAX package's models/sfm.py; reference
 models/SfmModel.py, SelfSupModel.py, SemiSupModel.py,
-SemiSupCompletionModel.py).
+SemiSupCompletionModel.py, VelSupModel.py).
 
 Batches are dicts of NHWC tensors: rgb [B,H,W,3], optional input_depth
 [B,H,W,1], depth (GT) [B,H,W,1], and for the self-supervised terms
 rgb_original, rgb_context and rgb_context_original (lists of [B,H,W,3]) and
-intrinsics [B,3,3]. The module's `training` flag picks the branch, as the
-JAX `train` argument does. The fisheye camera, PoseResNet and VelSupModel
-belong to later slices of the port and raise NotImplementedError.
+intrinsics [B,3,3], or the fisheye camera's 'distortion_coeffs' (a dict
+of k [B,7], s, div, ux, uy [B]; the loss then takes no K), and for the
+velocity term 'pose_context' (a list of [B,4,4] target -> context poses).
+The module's `training` flag picks the branch, as the JAX `train` argument
+does.
 """
 
 import torch
@@ -18,6 +20,7 @@ from packnet_sfm_tpu_torch.geometry.pose import Pose
 from packnet_sfm_tpu_torch.losses.dual_head import DualHeadDepthLoss
 from packnet_sfm_tpu_torch.losses.photometric import MultiViewPhotometricLoss
 from packnet_sfm_tpu_torch.losses.supervised import SupervisedLoss
+from packnet_sfm_tpu_torch.losses.velocity import velocity_loss
 from packnet_sfm_tpu_torch.ops.depth import sigmoid_to_inv_depth, depth2inv
 from packnet_sfm_tpu_torch.ops.image import flip_lr, interpolate
 from packnet_sfm_tpu_torch.ops.quantization import ste_quant_u8
@@ -103,13 +106,17 @@ class SelfSupModel(SfmModel):
         self.photometric_loss = photometric_loss or MultiViewPhotometricLoss()
 
     def self_supervised_loss(self, batch, output, progress=0.0):
+        """The photometric loss: through the fisheye camera when the batch
+        carries 'distortion_coeffs' (K is then not passed), else the
+        pinhole one."""
+        distortion = batch.get('distortion_coeffs')
         return self.photometric_loss(
             batch.get('rgb_original', batch['rgb']),
             batch.get('rgb_context_original', batch.get('rgb_context')),
             output['inv_depths'], output['poses'],
-            K=batch.get('intrinsics'),
-            distortion=batch.get('distortion_coeffs'),
-            mask=batch.get('mask'), progress=progress)
+            K=batch.get('intrinsics') if distortion is None else None,
+            distortion=distortion, mask=batch.get('mask'),
+            progress=progress)
 
     def forward(self, batch, progress=0.0, epoch=0, generator=None):
         output = self.forward_base(batch, generator)
@@ -237,3 +244,23 @@ class SemiSupCompletionModel(SelfSupModel):
                 loss = loss + self.consistency_loss_weight * cons
                 metrics['consistency_loss'] = cons
         return {**output, 'loss': loss, 'metrics': metrics}
+
+
+class VelSupModel(SelfSupModel):
+    """+ the velocity loss between the predicted context poses and the
+    batch's 'pose_context', weighted by `velocity_loss_weight`."""
+
+    def __init__(self, depth_net, photometric_loss=None,
+                 velocity_loss_weight=0.1, **kwargs):
+        super().__init__(depth_net, photometric_loss, **kwargs)
+        self.velocity_loss_weight = velocity_loss_weight
+
+    def forward(self, batch, progress=0.0, epoch=0, generator=None):
+        output = SelfSupModel.forward(self, batch, progress=progress,
+                                      generator=generator)
+        if self.training:
+            vel = velocity_loss(output['poses'], batch['pose_context'])
+            output['loss'] = output['loss'] + \
+                self.velocity_loss_weight * vel['loss']
+            output['metrics'] = {**output['metrics'], **vel['metrics']}
+        return output

@@ -1,5 +1,6 @@
 """
-ResNet encoder and monodepth2-style decoders, NCHW inside. BatchNorm uses
+ResNet encoder, monodepth2-style decoders and the pose decoder, NCHW
+inside. BatchNorm uses
 batch statistics in training and its running statistics in eval, picked by
 the module's `training` flag as flax's `use_running_average`.
 
@@ -8,7 +9,8 @@ named after the flax module paths (`Conv_0`, `BatchNorm_0`, `BasicBlock_3`,
 `upconv_4_0/Conv_0`, ...) so utils/flax_weights.py maps a flax variable
 tree onto them by name. A conv computes in the model's compute dtype
 (float32 or bfloat16) with float32 parameters, and BatchNorm in float32, as
-the flax modules do with `dtype=` set.
+the flax modules do with `dtype=` set. The pose decoder's flax convs have
+no dtype: they compute in float32, the encoder's output dtype.
 """
 
 import torch
@@ -18,8 +20,9 @@ import torch.nn.functional as F
 
 class Conv(nn.Conv2d):
     """nn.Conv2d that casts its input and parameters to `dtype` and records
-    how flax initialises it (`init`: 'kaiming' fan-out normal or 'xavier'
-    uniform), for models/factory.py init_weights."""
+    how flax initialises it (`init`: 'kaiming' fan-out normal, 'xavier'
+    uniform or 'lecun' fan-in truncated normal, flax's default), for
+    models/factory.py init_weights."""
 
     def __init__(self, cin, cout, k, stride=1, padding=0, bias=True,
                  init='xavier', dtype=torch.float32):
@@ -137,12 +140,15 @@ def max_pool_3x3_s2(x):
 
 class ResnetEncoder(nn.Module):
     """5-scale NCHW feature pyramid with the reference's fixed input
-    normalization (x - 0.45) / 0.225."""
+    normalization (x - 0.45) / 0.225; `num_input_images` frames stacked on
+    the channels (the pose encoder's first conv takes 3 x n)."""
 
-    def __init__(self, num_layers=18, dtype=torch.float32):
+    def __init__(self, num_layers=18, dtype=torch.float32,
+                 num_input_images=1):
         super().__init__()
         block, layers = RESNET_SPECS[num_layers]
-        self.Conv_0 = Conv(3, 64, 7, 2, 3, False, 'kaiming', dtype)
+        self.Conv_0 = Conv(3 * num_input_images, 64, 7, 2, 3, False,
+                           'kaiming', dtype)
         self.BatchNorm_0 = BatchNorm(64)
         self.stage_ends = []
         cin, n = 64, 0
@@ -250,3 +256,35 @@ class DualHeadDepthDecoder(_DecoderTrunk):
             return {('integer', i): torch.sigmoid(i_raw.float()),
                     ('fractional', i): torch.sigmoid(f_raw.float())}
         return self.trunk(input_features, head)
+
+
+class PoseDecoder(nn.Module):
+    """monodepth2's pose decoder: a 1x1 `squeeze_i` per input pyramid, two
+    3x3 convs (`pose_0`, `pose_1`) and a 1x1 `pose_2`, each ReLU'd but the
+    last, all in float32; 0.01 x the spatial mean. Returns (axisangle,
+    translation), each [B, num_frames_to_predict_for, 1, 3]."""
+
+    def __init__(self, num_ch_enc, num_input_features=1,
+                 num_frames_to_predict_for=2, stride=1):
+        super().__init__()
+        self.num_frames = num_frames_to_predict_for
+        for i in range(num_input_features):
+            setattr(self, 'squeeze_{}'.format(i),
+                    Conv(num_ch_enc[-1], 256, 1, init='lecun'))
+        self.squeezes = [getattr(self, 'squeeze_{}'.format(i))
+                         for i in range(num_input_features)]
+        self.pose_0 = Conv(256 * num_input_features, 256, 3, stride, 1,
+                           init='lecun')
+        self.pose_1 = Conv(256, 256, 3, stride, 1, init='lecun')
+        self.pose_2 = Conv(256, 6 * num_frames_to_predict_for, 1,
+                           init='lecun')
+
+    def forward(self, input_features):
+        """`input_features`: one feature pyramid per input."""
+        out = torch.cat([F.relu(sq(f[-1])) for sq, f in
+                         zip(self.squeezes, input_features)], 1)
+        out = F.relu(self.pose_0(out))
+        out = F.relu(self.pose_1(out))
+        out = 0.01 * self.pose_2(out).mean(dim=(2, 3)).reshape(
+            -1, self.num_frames, 1, 6)
+        return out[..., :3], out[..., 3:]

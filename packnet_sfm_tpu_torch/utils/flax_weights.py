@@ -3,11 +3,14 @@ Carry the JAX package's flax variables into the port's modules.
 
 The port's submodules are named after the flax module paths, so a flax
 leaf `a/b/Conv_1/kernel` lands on `model.a.b.Conv_1`:
-- nn.Conv2d (the port's `Conv`): `kernel` HWIO -> `weight` OIHW, `bias`;
+- nn.Conv2d (the port's `Conv`, the ResNet encoders', decoders' and pose
+  decoder's convs among them): `kernel` HWIO -> `weight` OIHW, `bias`;
 - nn.BatchNorm2d: `scale` -> `weight`, `bias`, and batch_stats `mean` /
   `var` -> `running_mean` / `running_var`;
 - nn.GroupNorm (PoseNet's, under `pose_net/convN/GroupNorm_0`): `scale` ->
   `weight`, `bias`;
+- a module the flax model calls more than once (PoseResNet's `encoder`,
+  once per context) has one set of leaves, as in flax;
 - everything else (masked-conv `kernel` kept HWIO for the kernel,
   MaskedBatchNorm `scale`/`bias`/`mean`/`var`, the fusion gates `weight` /
   `bias`): the same name, as it is.

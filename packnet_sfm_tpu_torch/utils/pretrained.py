@@ -1,25 +1,29 @@
 """
 Pretrained weights at model build: ImageNet encoders for the 'pt' depth
-nets and the per-network `checkpoint_path` loads. The port's own copy of
-the JAX package's export/torch_import.py (the torchvision -> flax key map,
-the weight search, `PretrainedWeightsNotFound`) and of
-`Trainer._maybe_load_pretrained` (trainers/trainer.py:683-737), without JAX.
+nets and PoseResNet, and the per-network `checkpoint_path` loads. The
+port's own copy of the JAX package's export/torch_import.py (the
+torchvision -> flax key map, the weight search,
+`PretrainedWeightsNotFound`) and of `Trainer._maybe_load_pretrained`
+(trainers/trainer.py:683-737), without JAX.
 
 Fail-loud, as the JAX package: a 'pt' depth-net version (or
-`use_imagenet_pretrained`) on a net with an `encoder` loads torchvision
-ResNet weights into it, from `weights_path` when set, else from the first
+`use_imagenet_pretrained`) on a net with an `encoder`, and a 'pt'
+PoseResNet, load torchvision ResNet weights into the encoder (PoseResNet's
+first conv takes two stacked images: conv1 repeated over them and halved),
+from the net's `weights_path` when set, else from the first
 `resnet{N}*.pth` in $PACKNET_WEIGHTS_DIR, else from the torch hub cache.
-Without a file it raises `PretrainedWeightsNotFound` unless
-`model.depth_net.allow_random_init` is true; then it prints one line and
-keeps the random init.
+Without a file it raises `PretrainedWeightsNotFound` unless the net's
+`allow_random_init` is true; then it prints one line and keeps the random
+init. Unlike a `checkpoint_path` load, the encoder's BN statistics come
+from the file too.
 
 The weights go through the flax layout and `load_flax_variables`, so a
 file with a missing, unexpected or misshaped key raises. The same holds
 for `model.<net>.checkpoint_path` (a JAX-package `.ckpt`), where the JAX
 package's utils/load.py `load_network` keeps the random init for any key
 it cannot match without a word. As there, only the net's parameters are
-taken: its BN statistics stay as they are. The pose nets' pretrained
-encoders (PoseResNet) and the YOLOv8 backbones are not ported.
+taken: its BN statistics stay as they are. The YOLOv8 backbones are not
+ported.
 """
 
 import glob
@@ -152,8 +156,9 @@ def load_net_checkpoint(net, path, key):
 
 def load_pretrained(config, model):
     """The counterpart of the JAX `Trainer._maybe_load_pretrained` on a
-    freshly built model: the depth net's ImageNet encoder, then each net's
-    `checkpoint_path`. Returns the model."""
+    freshly built model: the depth net's ImageNet encoder, a PoseResNet's
+    two-image one, then each net's `checkpoint_path`. Returns the
+    model."""
     dn = config.model.depth_net
     version = dn.get('version', '') or ''
     depth_net = model.depth_net
@@ -164,6 +169,15 @@ def load_pretrained(config, model):
             depth_net.encoder, num_layers,
             weights_path=dn.get('weights_path', '') or None,
             required=not bool(dn.get('allow_random_init', False)))
+    pn = config.model.pose_net
+    pn_version = pn.get('version', '') or ''
+    if pn.name == 'PoseResNet' and pn_version.endswith('pt'):
+        load_pretrained_encoder(
+            model.pose_net.encoder,
+            int(pn_version[:2]) if pn_version[:2].isdigit() else 18,
+            weights_path=pn.get('weights_path', '') or None,
+            required=not bool(pn.get('allow_random_init', False)),
+            num_input_images=2)
     for key in ('depth_net', 'pose_net'):
         path = config.model[key].get('checkpoint_path', '')
         if path:

@@ -173,7 +173,8 @@ def test_setup_dataset_matches_jax_and_refuses_unported(ncdb_root):
     assert_same(got[0][1], want[0][1])
     assert got[0][1]['rgb'].shape == (16, 24, 3)
     assert got[0][1]['depth'].shape == (32, 48, 1)   # GT stays full-size
-    for name in ('KITTI', 'DGP', 'Image'):
+    # KITTI is ported (tests/test_torch_kitti_data.py)
+    for name in ('DGP', 'Image'):
         node = cfg.datasets.test.clone()
         node.dataset = [name]
         with pytest.raises(NotImplementedError, match='ROADMAP'):

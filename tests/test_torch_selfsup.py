@@ -182,11 +182,13 @@ def test_loss_counts_one_warp_per_context_and_one_automask_map():
 
 
 def test_loss_refuses_the_fisheye_camera():
+    """The fisheye camera is ported (tests/test_torch_fisheye.py); a
+    distortion dict without its scales and principal point is refused."""
     image, ctx, sig, vec, K = _loss_inputs(5, False)
-    with pytest.raises(NotImplementedError, match='fisheye'):
+    with pytest.raises(KeyError, match="'s'"):
         TL()(t(image), [t(c) for c in ctx], [t(s) for s in sig],
              [TPose.from_vec(t(vec[:, i])) for i in range(2)],
-             distortion={'k': t(K)})
+             distortion={'k': t(K[:, 0])})
     with pytest.raises(ValueError, match='Automasking'):
         TL(automask_loss=True, photometric_reduce_op='mean')
 
