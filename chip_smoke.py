@@ -190,6 +190,30 @@ it, with nothing of JAX:
    VelSupModel on the Synthetic dataset's pose_context (1 step), each with
    2 warp forward and 2 dgrid launches a step and one float32 step through
    the kernels against the plain versions; chiprun_out/chip_smoke_kitti.json;
+   then the Image and DGP datasets (phase I): a DGP tree written with the
+   port's write_dgp_tree (2 scenes x 8 samples, camera_01 and camera_05 at
+   DDAD's 1216x1936, 20,000 LiDAR points a sweep) and a seeded resnet18
+   file for the '18pt' encoders; I1, configs/overfit_ddad.yaml as written
+   but for the tree and repeat 1 (DepthResNet + PoseResNet, B4 384x640,
+   float32 convs, bf16 maps, camera_01) through train.fit for 2 epochs of
+   3 steps with validation on the LiDAR depth and a checkpoint: 2 warp
+   forward and 2 dgrid launches a step, none in validation; eval.py
+   --checkpoint on the test split (no launch); 10 steps on one batch, the
+   loss falling; the float32 maps (2 steps: also 10 photometric forward and
+   8 backward launches a step); one float32 step through the kernels
+   against the plain versions at the train step's limits, the reversed
+   batch as the control, and the kernels against their plain versions on
+   that step's own inputs; I2, both cameras folded into B8 384x640 on the
+   way to the card (every dgrid launch over 8 images; the launches a step
+   stay 2 + 2, one a context over the whole batch), one epoch, the fp32
+   step check at B8; the 'ram' sample cache under tpu.device_augment for 2
+   epochs (the second replayed from memory) and RandAugment, random
+   erasing and mixup for one, both without validation; I3, the omnicam
+   YAMLs over 8 Image frames of 768x768 written with write_image_tree,
+   one epoch each at B1 384x384: 2 projection forwards, 2 backward calls,
+   2 warp forward and 2 dgrid launches a step, and the projection and
+   warp kernels against their plain versions on a step of a batch from
+   disk (192x192 and 384x384 planes); chiprun_out/chip_smoke_image_dgp.json;
 4. (d) time eval img/s at B1 and the train step and img/s at B8, the
    forward kernel at the eval shapes and both kernels at the train shapes
    beside their plain versions, the library yardstick (one cuDNN call the
@@ -220,7 +244,8 @@ card. Extra output goes to chiprun_out/chip_smoke_convs.json,
 chiprun_out/chip_smoke_selfsup.json, chiprun_out/chip_smoke_generic.json,
 chiprun_out/chip_smoke_gather.json, chiprun_out/chip_smoke_cli.json,
 chiprun_out/chip_smoke_train_disk.json,
-chiprun_out/chip_smoke_dual_head.json and chiprun_out/chip_smoke_kitti.json.
+chiprun_out/chip_smoke_dual_head.json, chiprun_out/chip_smoke_kitti.json
+and chiprun_out/chip_smoke_image_dgp.json.
 """
 
 import contextlib
@@ -288,6 +313,14 @@ KITTI_VAL = (1, 2, 3, 4)               # its validation and test frames
 SAN_KITTI_TRAIN = range(10, 20)        # K2's frames, all with both contexts
 K1_EPOCHS = 2                          # of 2 steps (34 samples, B16)
 K3_SHAPE, K3_BATCH = (384, 640), 4     # the fisheye step: NCDB's A6 frames
+DDAD_CONFIG = 'configs/overfit_ddad.yaml'
+DDAD_NATIVE = (1216, 1936)             # DDAD's image size
+DDAD_CAMERAS = ('camera_01', 'camera_05')
+DDAD_SCENES, DDAD_SAMPLES = 2, 8       # the phase I tree
+DDAD_POINTS = 20000                    # LiDAR points a sweep
+DDAD_EPOCHS = 2                        # of 3 steps (12 samples, B4)
+OMNICAM_NATIVE = (768, 768)            # the phase I Image folder's frames
+OMNICAM_FRAMES = 8
 # fp32 adds: one instruction a lane a clock, 128 lanes an SM, 132 SMs at
 # 1.98 GHz (the 67 TFLOP/s peak counts an FMA as two)
 H100_FP32_ADDS_PER_S = 132 * 128 * 1.98e9
@@ -969,6 +1002,22 @@ def main():
                'photometric_bwd': 'photo_bwd'}.get(row['name'])
         if key:
             for path, got in kitti_launches.items():
+                if got[key]:
+                    row['launches'] += got[key]
+                    row['launches_by_path'][path] = got[key]
+
+    # ---------------------------------------------------------------- I
+    image_dgp_launches = image_dgp_phase(card, dev, gen, reset_counts,
+                                         read_counts)
+    for row in selfsup_rows + generic_rows:
+        key = {'warp_bilinear_out': 'warp_out',
+               'warp_bilinear_dgrid': 'warp_dgrid',
+               'photometric_fwd': 'photo_fwd',
+               'photometric_bwd': 'photo_bwd',
+               'generic_projection_fwd': 'proj_fwd',
+               'generic_projection_bwd': 'proj_bwd'}.get(row['name'])
+        if key:
+            for path, got in image_dgp_launches.items():
                 if got[key]:
                     row['launches'] += got[key]
                     row['launches_by_path'][path] = got[key]
@@ -1815,6 +1864,57 @@ def projection_cases(rec, gen):
     return cases
 
 
+def check_projection_fwd(tag, ray, d, p, err, m_equal):
+    """The projection forward kernel against its plain version on one
+    input. The logits are the same products summed in the same order, so
+    m (their max) is expected bit for bit; s, rows and cols sum the same
+    positive terms in another order: s rtol 1e-5, rows and cols atol 1e-5
+    of the plane's extent (5e-6 on the normalised grid, 40x inside JAX's
+    own cross-formulation limit of 2e-4). Raises past those; updates the
+    max errors in `err` ('rows_cols_px', 'm_rel', 's_rel') and the count
+    of bit-equal m values in `m_equal` [equal, all]."""
+    import torch
+    from packnet_sfm_tpu_torch.ops.kernels import generic_projection as gp
+    got = gp.generic_projection_fwd(ray, d, p)
+    torch.cuda.synchronize()
+    want = gp.generic_projection_fwd_reference(ray, d, p)
+    H, W = ray.shape[2], ray.shape[3]
+    for nm, a, b, ext in (('rows', got[0], want[0], H - 1),
+                          ('cols', got[1], want[1], W - 1)):
+        err['rows_cols_px'] = max(err['rows_cols_px'], check_close(
+            'projection fwd {} {}'.format(tag, nm), a, b, 1e-5 * ext, 0.0))
+    err['m_rel'] = max(err['m_rel'], check_close(
+        'projection fwd {} m'.format(tag), got[2], want[2], 0.0, 1e-6)
+        / float(want[2].abs().max()))
+    err['s_rel'] = max(err['s_rel'], check_close(
+        'projection fwd {} s'.format(tag), got[3], want[3], 0.0, 1e-5)
+        / float(want[3].abs().max()))
+    m_equal[0] += int((got[2] == want[2]).sum())
+    m_equal[1] += got[2].numel()
+
+
+def check_projection_bwd(tag, args):
+    """The projection backward kernels against their plain formula on one
+    call's arguments: signed sums over up to (3p+1)^2 terms in another
+    order, atol 2e-4 x max|ref| (10x inside JAX's 2e-3); run twice,
+    bit-equal (no atomics). Returns the max |err| / max|ref|."""
+    import torch
+    from packnet_sfm_tpu_torch.ops.kernels import generic_projection as gp
+    got = gp.generic_projection_bwd(*args)
+    again = gp.generic_projection_bwd(*args)
+    torch.cuda.synchronize()
+    want = gp.generic_projection_bwd_reference(*args)
+    err = 0.0
+    for nm, a, b, c in zip(('dray', 'dd'), got, want, again):
+        err = max(err, check_close(
+            'projection bwd {} {}'.format(tag, nm), a, b,
+            2e-4 * float(b.abs().max()), 0.0) / float(b.abs().max()))
+        if not torch.equal(a, c):
+            raise AssertionError('projection bwd {} {}: two calls differ'
+                                 .format(tag, nm))
+    return err
+
+
 def generic_phase(card, dev, gen, reset_counts, read_counts):
     """Phase G: the generic-camera slice (configs/train_omnicam.yaml (i),
     configs/train_omnicam_fullres.yaml (ii)): its projection kernels
@@ -1854,41 +1954,20 @@ def generic_phase(card, dev, gen, reset_counts, read_counts):
     log('generic step projection planes: (i) {}, (ii) {}'.format(
         sizes['i'], sizes['ii']))
 
-    # the forward against its plain version: the logits are the same
-    # products summed in the same order, so m (their max) is expected bit
-    # for bit; s, rows and cols sum the same positive terms in another
-    # order: s rtol 1e-5, rows and cols atol 1e-5 of the plane's extent
-    # (5e-6 on the normalised grid, 40x inside JAX's own cross-formulation
-    # limit of 2e-4)
+    # the forward against its plain version (check_projection_fwd's rule)
     fwd_err = {'rows_cols_px': 0.0, 'm_rel': 0.0, 's_rel': 0.0}
     m_equal = [0, 0]
     cases = projection_cases(rec, gen)
     for tag, ray, d, p in cases:
-        got = gp.generic_projection_fwd(ray, d, p)
-        torch.cuda.synchronize()
-        want = gp.generic_projection_fwd_reference(ray, d, p)
-        H, W = ray.shape[2], ray.shape[3]
-        for nm, a, b, ext in (('rows', got[0], want[0], H - 1),
-                              ('cols', got[1], want[1], W - 1)):
-            fwd_err['rows_cols_px'] = max(fwd_err['rows_cols_px'], check_close(
-                'projection fwd {} {}'.format(tag, nm), a, b, 1e-5 * ext, 0.0))
-        fwd_err['m_rel'] = max(fwd_err['m_rel'], check_close(
-            'projection fwd {} m'.format(tag), got[2], want[2], 0.0, 1e-6)
-            / float(want[2].abs().max()))
-        fwd_err['s_rel'] = max(fwd_err['s_rel'], check_close(
-            'projection fwd {} s'.format(tag), got[3], want[3], 0.0, 1e-5)
-            / float(want[3].abs().max()))
-        m_equal[0] += int((got[2] == want[2]).sum())
-        m_equal[1] += got[2].numel()
+        check_projection_fwd(tag, ray, d, p, fwd_err, m_equal)
     log('projection forward kernel vs plain: {} cases ok; max |err| rows / '
         'cols {:.3e} px, m {:.3e} and s {:.3e} of max; m bit-equal {:.6f} '
         'of the values'.format(len(cases), fwd_err['rows_cols_px'],
                                fwd_err['m_rel'], fwd_err['s_rel'],
                                m_equal[0] / m_equal[1]))
 
-    # the backward against its plain formula on the same residuals: signed
-    # sums over up to (3p+1)^2 terms in another order: atol 2e-4 x
-    # max|ref| (10x inside JAX's 2e-3); run twice, bit-equal (no atomics)
+    # the backward against its plain formula on the same residuals
+    # (check_projection_bwd's rule)
     bwd_err = 0.0
     bcases = [('step ' + tag, a) for tag in ('i', 'ii')
               for a in rec['bwd_' + tag]]
@@ -1898,17 +1977,7 @@ def generic_phase(card, dev, gen, reset_counts, read_counts):
               for _ in range(2)]
         bcases.append((tag, (ray, d, *res, *g2, p)))
     for tag, args in bcases:
-        got = gp.generic_projection_bwd(*args)
-        again = gp.generic_projection_bwd(*args)
-        torch.cuda.synchronize()
-        want = gp.generic_projection_bwd_reference(*args)
-        for nm, a, b, c in zip(('dray', 'dd'), got, want, again):
-            bwd_err = max(bwd_err, check_close(
-                'projection bwd {} {}'.format(tag, nm), a, b,
-                2e-4 * float(b.abs().max()), 0.0) / float(b.abs().max()))
-            if not torch.equal(a, c):
-                raise AssertionError('projection bwd {} {}: two calls differ'
-                                     .format(tag, nm))
+        bwd_err = max(bwd_err, check_projection_bwd(tag, args))
     log('projection backward kernels vs plain: {} cases ok, max |err| {:.3e} '
         'of max|ref|; two calls bit-equal'.format(len(bcases), bwd_err))
 
@@ -3852,6 +3921,378 @@ def kitti_phase(card, dev, gen, reset_counts, read_counts):
     with open('chiprun_out/chip_smoke_kitti.json', 'w') as f:
         json.dump(summary, f, indent=1, default=float)
     return launches, summary['k2']['conv_totals']
+
+
+def image_dgp_phase(card, dev, gen, reset_counts, read_counts):
+    """Phase I: the Image and DGP datasets, the multi-camera fold, the
+    sample cache and the advanced augmentations (see the module note).
+    Returns {run: launch counts} of the path runs."""
+    import tempfile
+    import numpy as np
+    import torch
+    from packnet_sfm_tpu_torch import eval as port_eval
+    from packnet_sfm_tpu_torch import train as port_train
+    from packnet_sfm_tpu_torch.datasets.cache import SampleCache
+    from packnet_sfm_tpu_torch.datasets.dgp import write_dgp_tree
+    from packnet_sfm_tpu_torch.datasets.image_dataset import write_image_tree
+    from packnet_sfm_tpu_torch.datasets.loader import to_device_batch
+    from packnet_sfm_tpu_torch.ops.kernels import generic_projection as gp
+    from packnet_sfm_tpu_torch.ops.kernels import warp
+    from packnet_sfm_tpu_torch.trainers.trainer import make_loader
+
+    summary = {'card': card, 'ddad_shape': list(DDAD_NATIVE),
+               'ddad_cameras': list(DDAD_CAMERAS),
+               'ddad_points': DDAD_POINTS,
+               'omnicam_shape': list(OMNICAM_NATIVE)}
+    launches = {}
+    per_step = {'warp_out': WARPS_PER_STEP, 'warp_dgrid': WARPS_PER_STEP,
+                'photo_fwd': PHOTO_FWD_PER_STEP,
+                'photo_bwd': PHOTO_BWD_PER_STEP}
+
+    def expect(run, got, **want_counts):
+        want = dict.fromkeys(got, 0)
+        want.update(want_counts)
+        if got != want:
+            raise AssertionError('{}: launches {}, expected {}'.format(
+                run, got, want))
+        launches[run] = got
+
+    def fit(tag, config, overrides, **want_per_step):
+        """train.fit under `overrides` with an EpochRecorder; its launches
+        must be want_per_step x the steps, and no step skipped. Returns
+        (trainer, its train loader, the recorder's history, seconds)."""
+        logger = EpochRecorder()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = port_train.fit(config, dev, overrides, logger=logger)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = read_counts()
+        loader = make_loader(trainer.config, 'train')
+        steps = trainer.max_epochs * len(loader)
+        expect(tag, got, **{k: v * steps for k, v in want_per_step.items()})
+        losses = [logger.history[e]['train/loss']
+                  for e in range(trainer.max_epochs)]
+        if trainer.step != steps or trainer.optimizer.count != steps or \
+                not np.all(np.isfinite(losses)):
+            raise AssertionError('{}: {} steps, {} updates, losses {}'.format(
+                tag, trainer.step, trainer.optimizer.count, losses))
+        return trainer, loader, logger.history, seconds
+
+    def first_batch(loader):
+        """The loader's first samples (unshuffled) collated and on the
+        card, without starting the loader's threads, whose decoding would
+        run on during the timings that follow."""
+        return to_device_batch(loader.collate_fn([
+            loader.dataset[i] for i in range(loader.batch_size)]), dev)
+
+    def rates(history, epoch):
+        h = history[epoch]
+        return {'img_per_s_with_data': h['train/img_per_s'],
+                'data_ms_per_step': h['train/data_ms_per_step'],
+                'step_ms_per_step': h['train/step_ms_per_step']}
+
+    env = os.environ.get('PACKNET_WEIGHTS_DIR')
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            # the '18pt' encoders (DepthResNet, PoseResNet, RaySurfaceResNet)
+            # load the seeded resnet18 file
+            os.environ['PACKNET_WEIGHTS_DIR'] = os.path.join(tmp, 'weights')
+            os.makedirs(os.environ['PACKNET_WEIGHTS_DIR'])
+            torch.save(seeded_resnet18_state_dict(0), os.path.join(
+                os.environ['PACKNET_WEIGHTS_DIR'], 'resnet18-seeded.pth'))
+            root = os.path.join(tmp, 'ddad')
+            t0 = time.perf_counter()
+            write_dgp_tree(root, DDAD_SCENES, DDAD_SAMPLES, DDAD_CAMERAS,
+                           *DDAD_NATIVE, DDAD_POINTS, seed=0)
+            summary['write_ddad_s'] = time.perf_counter() - t0
+            log('phase I DGP tree: {} scenes x {} samples, cameras {} at '
+                '{}x{}, {} LiDAR points a sweep, in {:.1f} s'.format(
+                    DDAD_SCENES, DDAD_SAMPLES, DDAD_CAMERAS, *DDAD_NATIVE,
+                    DDAD_POINTS, summary['write_ddad_s']))
+            data = ['datasets.train.repeat', [1],
+                    'arch.eval_subset_size', 4]
+            for split in ('train', 'validation', 'test'):
+                data += ['datasets.{}.path'.format(split), [root],
+                         'datasets.{}.split'.format(split), ['']]
+
+            # I1: overfit_ddad.yaml as written (DepthResNet + PoseResNet
+            # '18pt', B4 384x640, float32 convs and bf16 maps, camera_01)
+            # through train.fit: 2 warp forward and 2 dgrid launches a
+            # step, none in validation
+            ck = os.path.join(tmp, 'i1')
+            i1, loader, history, fit_s = fit(
+                'ddad_i1_fit', DDAD_CONFIG, data + [
+                    'arch.max_epochs', DDAD_EPOCHS, 'checkpoint.filepath',
+                    ck], warp_out=WARPS_PER_STEP, warp_dgrid=WARPS_PER_STEP)
+            batch = first_batch(loader)
+            bs = int(i1.config.datasets.train.batch_size)
+            shape = tuple(i1.config.datasets.augmentation.image_shape)
+            val = [history[e]['val/depth-abs_rel']
+                   for e in range(DDAD_EPOCHS)]
+            if tuple(batch['rgb'].shape[:3]) != (bs,) + shape or \
+                    len(batch['rgb_context']) != 2 or \
+                    not np.all(np.isfinite(val)):
+                raise AssertionError('I1: batch {}, {} contexts, val '
+                                     'abs_rel {}'.format(
+                                         tuple(batch['rgb'].shape),
+                                         len(batch['rgb_context']), val))
+            alone = step_alone_ms(i1.train_step, batch)
+            last = rates(history, DDAD_EPOCHS - 1)
+            summary['i1'] = {
+                'fit_s': fit_s, 'steps': i1.step, 'val_abs_rel': val,
+                'losses': [history[e]['train/loss']
+                           for e in range(DDAD_EPOCHS)],
+                **last, 'first_epoch': rates(history, 0),
+                'step_alone_ms': alone,
+                'img_per_s_step_alone': bs * 1e3 / alone}
+            log('I1 overfit_ddad.yaml through train.fit, B{} {}x{} (float32 '
+                'convs, bf16 maps), camera_01 from {}x{}: {} epochs of {} '
+                'steps in {:.1f} s, launches {}; val abs_rel on the LiDAR '
+                '{}; epoch {}: {:.2f} img/s with data, data {:.1f} ms | '
+                'step {:.1f} ms a step (epoch 0: {:.2f} img/s, data {:.1f} '
+                'ms); the step alone {:.2f} ms = {:.2f} img/s; {}'.format(
+                    bs, *shape, *DDAD_NATIVE, DDAD_EPOCHS, len(loader),
+                    fit_s, {k: v for k, v in launches['ddad_i1_fit'].items()
+                            if v}, ['{:.4f}'.format(v) for v in val],
+                    DDAD_EPOCHS - 1, last['img_per_s_with_data'],
+                    last['data_ms_per_step'], last['step_ms_per_step'],
+                    summary['i1']['first_epoch']['img_per_s_with_data'],
+                    summary['i1']['first_epoch']['data_ms_per_step'], alone,
+                    bs * 1e3 / alone, card))
+            run_dir = os.path.dirname(i1.config.checkpoint.filepath)
+            ckpt = os.path.join(run_dir, sorted(
+                f for f in os.listdir(run_dir) if f.endswith('.ckpt'))[-1])
+            last_val = dict(i1.last_val_metrics)
+            del i1
+
+            # eval.py --checkpoint on the test split (the same 16 frames
+            # with their LiDAR depth): no kernel launch
+            reset_counts()
+            t0 = time.perf_counter()
+            m = port_eval.test(ckpt, device=dev, overrides=data[-4:])
+            eval_s = time.perf_counter() - t0
+            expect('ddad_i1_eval', read_counts())
+            if len(m) != 6 * 7 + 1 or m.skipped or \
+                    not np.isfinite(m['depth-abs_rel']):
+                raise AssertionError('I1 eval: {}'.format(m))
+            summary['i1']['eval'] = {
+                'seconds': eval_s, 'abs_rel': m['depth-abs_rel'],
+                'abs_rel_last_validation': last_val['depth-abs_rel']}
+            log('I1 eval.py --checkpoint {} on the test split: abs_rel '
+                '{:.4f} (the last validation {:.4f}), in {:.1f} s, no kernel '
+                'launch'.format(os.path.basename(ckpt), m['depth-abs_rel'],
+                                last_val['depth-abs_rel'], eval_s))
+
+            # 10 steps on one batch, the loss falling; then the float32
+            # maps through the fused kernels: 10 photometric forward and 8
+            # backward launches a step too
+            reset_counts()
+            run = port_train.main(DDAD_CONFIG, dev, n_steps=10,
+                                  batches=[batch], overrides=data)
+            expect('ddad_i1_one_batch', read_counts(),
+                   warp_out=WARPS_PER_STEP * 10,
+                   warp_dgrid=WARPS_PER_STEP * 10)
+            if not (np.all(np.isfinite(run['losses'])) and
+                    run['losses'][-1] < run['losses'][0]):
+                raise AssertionError('I1 loss did not fall over 10 steps: '
+                                     '{}'.format(run['losses']))
+            summary['i1']['one_batch_losses'] = run['losses']
+            reset_counts()
+            run = port_train.main(DDAD_CONFIG, dev, n_steps=2,
+                                  batches=[batch],
+                                  overrides=data + FP32_MAPS)
+            expect('ddad_i1_fp32_maps', read_counts(),
+                   **{k: v * 2 for k, v in per_step.items()})
+            one = summary['i1']['one_batch_losses']
+            log('I1 10 steps on one batch: loss {:.4f} -> {:.4f}; the '
+                'float32 maps through the fused kernels, 2 steps: losses '
+                '{}'.format(one[0], one[-1],
+                            ['{:.4f}'.format(v) for v in run['losses']]))
+            del run
+            summary['i1']['fp32_step'], cases = kernel_step_check(
+                'I1 (float32 maps)', DDAD_CONFIG, data + FP32_MAPS, batch,
+                per_step)
+            summary['i1']['kernels_vs_plain'] = check_recorded_kernels(
+                'I1', cases)
+            log('I1 kernels vs plain on the step\'s own inputs (B{} {}x{}): '
+                '{}'.format(bs, *shape, {
+                    k: '{:.3e}'.format(v) for k, v in
+                    summary['i1']['kernels_vs_plain'].items()}))
+            del batch, cases
+
+            # I2: both cameras, folded into B8 on the way to the card; the
+            # launches a step stay 2 + 2 (a launch covers the whole batch),
+            # each over the 8 images
+            cams = [list(DDAD_CAMERAS)]
+            cams = ['datasets.train.cameras', cams,
+                    'datasets.validation.cameras', cams]
+            grids = []
+            dgrid = warp._launch_dgrid
+            warp._launch_dgrid = lambda img, *a: (
+                grids.append(tuple(img.shape)), dgrid(img, *a))[1]
+            try:
+                i2, loader, history, fit_s = fit(
+                    'ddad_i2_fit', DDAD_CONFIG, data + cams + [
+                        'arch.max_epochs', 1, 'checkpoint.filepath', ''],
+                    warp_out=WARPS_PER_STEP, warp_dgrid=WARPS_PER_STEP)
+            finally:
+                warp._launch_dgrid = dgrid
+            batch = first_batch(loader)
+            folded = (bs * len(DDAD_CAMERAS),) + shape
+            if tuple(batch['rgb'].shape[:3]) != folded or \
+                    {g[:3] for g in grids} != {folded}:
+                raise AssertionError('I2: batch {}, the dgrid launches saw '
+                                     '{}'.format(tuple(batch['rgb'].shape),
+                                                 sorted(set(grids))))
+            alone = step_alone_ms(i2.train_step, batch)
+            summary['i2'] = {
+                'fit_s': fit_s, 'steps': i2.step,
+                'launches_per_step': {k: v // i2.step for k, v in
+                                      launches['ddad_i2_fit'].items() if v},
+                'launch_batch': folded[0],
+                'val_abs_rel': history[0]['val/depth-abs_rel'],
+                **rates(history, 0), 'step_alone_ms': alone,
+                'img_per_s_step_alone': folded[0] * 1e3 / alone}
+            log('I2 both cameras: the folded batch B{} {}x{} reaches the '
+                'step (every dgrid launch over {} images); {} steps in '
+                '{:.1f} s, launches {} ({} a step, as I1\'s: one a context '
+                'over the whole batch); {:.2f} img/s with data, data {:.1f} '
+                'ms | step {:.1f} ms; the step alone {:.2f} ms = {:.2f} '
+                'img/s; {}'.format(
+                    *folded, folded[0], i2.step, fit_s,
+                    {k: v for k, v in launches['ddad_i2_fit'].items() if v},
+                    summary['i2']['launches_per_step'],
+                    summary['i2']['img_per_s_with_data'],
+                    summary['i2']['data_ms_per_step'],
+                    summary['i2']['step_ms_per_step'], alone,
+                    folded[0] * 1e3 / alone, card))
+            del i2
+            summary['i2']['fp32_step'], cases = kernel_step_check(
+                'I2 folded (float32 maps)', DDAD_CONFIG,
+                data + cams + FP32_MAPS, batch, per_step)
+            summary['i2']['kernels_vs_plain'] = check_recorded_kernels(
+                'I2', cases)
+            log('I2 kernels vs plain on the folded step\'s own inputs: '
+                '{}'.format({k: '{:.3e}'.format(v) for k, v in
+                             summary['i2']['kernels_vs_plain'].items()}))
+            del batch, cases
+
+            # the sample cache in RAM under tpu.device_augment (2 epochs:
+            # the second replays the first's samples), then RandAugment,
+            # random erasing and mixup; no validation
+            quiet = ['datasets.validation.dataset', [],
+                     'datasets.validation.path', [],
+                     'checkpoint.filepath', '']
+            i2c, loader, history, fit_s = fit(
+                'ddad_i2_cache', DDAD_CONFIG, data + cams + quiet + [
+                    'arch.max_epochs', 2, 'datasets.train.cache', 'ram',
+                    'tpu.device_augment', True],
+                warp_out=WARPS_PER_STEP, warp_dgrid=WARPS_PER_STEP)
+            if not isinstance(loader.dataset, SampleCache):
+                raise AssertionError('I2: the train split is not cached')
+            summary['i2']['cache_ram_device_augment'] = {
+                'fit_s': fit_s, 'epochs': [rates(history, e)
+                                           for e in range(2)]}
+            del i2c
+            advanced = ['datasets.augmentation.randaugment.enabled', True,
+                        'datasets.augmentation.random_erasing.enabled', True,
+                        'datasets.augmentation.mixup.enabled', True]
+            i2a, loader, history, fit_s = fit(
+                'ddad_i2_advanced', DDAD_CONFIG,
+                data + cams + quiet + advanced + ['arch.max_epochs', 1],
+                warp_out=WARPS_PER_STEP, warp_dgrid=WARPS_PER_STEP)
+            if loader.batch_augment is None or len(
+                    loader.dataset.transform.advanced) != 2:
+                raise AssertionError('I2: the advanced augmentations are '
+                                     'not on the train split')
+            summary['i2']['advanced'] = {'fit_s': fit_s, **rates(history, 0),
+                                         'loss': history[0]['train/loss']}
+            del i2a
+            c = summary['i2']['cache_ram_device_augment']['epochs']
+            log('I2 cache \'ram\' under tpu.device_augment: epoch 0 {:.2f} '
+                'img/s with data (data {:.1f} ms a step), epoch 1 from RAM '
+                '{:.2f} (data {:.1f} ms); RandAugment + random erasing + '
+                'mixup: {:.2f} img/s (data {:.1f} ms), loss {:.4f}; {}'.format(
+                    c[0]['img_per_s_with_data'], c[0]['data_ms_per_step'],
+                    c[1]['img_per_s_with_data'], c[1]['data_ms_per_step'],
+                    summary['i2']['advanced']['img_per_s_with_data'],
+                    summary['i2']['advanced']['data_ms_per_step'],
+                    summary['i2']['advanced']['loss'], card))
+
+            # I3: the omnicam YAMLs over an Image folder (768x768 frames,
+            # B1 384x384): 2 projection forwards, 2 backward calls, 2 warp
+            # forward and 2 dgrid launches a step, as in phase G
+            frames = write_image_tree(os.path.join(tmp, 'omnicam'),
+                                      OMNICAM_FRAMES, *OMNICAM_NATIVE,
+                                      seed=0)
+            summary['i3'] = {}
+            for name, config in GENERIC_CONFIGS.items():
+                g, loader, history, fit_s = fit(
+                    'omnicam_{}_fit'.format(name), config, [
+                        'datasets.train.path', [frames],
+                        'arch.max_epochs', 1, 'checkpoint.filepath', ''],
+                    proj_fwd=PROJ_PER_STEP, proj_bwd=PROJ_PER_STEP,
+                    warp_out=WARPS_PER_STEP, warp_dgrid=WARPS_PER_STEP)
+                batch = first_batch(loader)
+                alone = step_alone_ms(g.train_step, batch)
+                model = g.model
+                del g
+                # the projection and warp kernels against their plain
+                # versions on one step's own inputs from disk
+                rec = {'fwd': [], 'bwd': [], 'dgrid': []}
+                with recording(gp, '_launch_fwd', rec['fwd']), \
+                        recording(gp, '_launch_bwd', rec['bwd']), \
+                        recording(warp, '_launch_dgrid', rec['dgrid']):
+                    model.train()
+                    model(batch)['loss'].backward()
+                del model
+                fwd_err = {'rows_cols_px': 0.0, 'm_rel': 0.0, 's_rel': 0.0}
+                m_equal = [0, 0]
+                for ray, d, p in rec['fwd']:
+                    check_projection_fwd('I3 ' + name, ray, d, p, fwd_err,
+                                         m_equal)
+                bwd_err = max(check_projection_bwd('I3 ' + name, args)
+                              for args in rec['bwd'])
+                warp_err = check_recorded_kernels('I3 ' + name, [
+                    ('warp', (img, grid, mode, gg))
+                    for img, grid, gg, mode in rec['dgrid']])
+                plane = tuple(rec['fwd'][0][0].shape)
+                summary['i3'][name] = {
+                    'fit_s': fit_s, 'steps': len(loader),
+                    'loss': history[0]['train/loss'], **rates(history, 0),
+                    'step_alone_ms': alone, 'plane': list(plane),
+                    'projection_fwd_err': fwd_err,
+                    'projection_bwd_rel_err': bwd_err, 'warp_err': warp_err}
+                log('I3 {} ({}) over {} frames of {}x{} on disk, B1 {}x{}: '
+                    '{} steps in {:.1f} s, launches {}; {:.2f} img/s with '
+                    'data (data {:.1f} ms | step {:.1f} ms); the step alone '
+                    '{:.2f} ms; projection planes {}, kernels vs plain on a '
+                    'disk step: fwd rows/cols {:.3e} px, m {:.3e}, s {:.3e}; '
+                    'bwd {:.3e} of max; warp {}; {}'.format(
+                        name, os.path.basename(config), OMNICAM_FRAMES,
+                        *OMNICAM_NATIVE, *batch['rgb'].shape[1:3],
+                        len(loader), fit_s,
+                        {k: v for k, v in
+                         launches['omnicam_{}_fit'.format(name)].items()
+                         if v},
+                        summary['i3'][name]['img_per_s_with_data'],
+                        summary['i3'][name]['data_ms_per_step'],
+                        summary['i3'][name]['step_ms_per_step'], alone,
+                        plane, fwd_err['rows_cols_px'], fwd_err['m_rel'],
+                        fwd_err['s_rel'], bwd_err,
+                        {k: '{:.3e}'.format(v) for k, v in warp_err.items()},
+                        card))
+                del batch, rec
+        finally:
+            if env is None:
+                os.environ.pop('PACKNET_WEIGHTS_DIR', None)
+            else:
+                os.environ['PACKNET_WEIGHTS_DIR'] = env
+    summary['launches'] = launches
+    with open('chiprun_out/chip_smoke_image_dgp.json', 'w') as f:
+        json.dump(summary, f, indent=1, default=float)
+    return launches
 
 
 def time_forward(i, mod, mask, dtype, dname, esize, gen, san_conv):

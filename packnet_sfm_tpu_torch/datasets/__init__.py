@@ -1,19 +1,16 @@
 """
 Datasets of the port, and `setup_dataset`, the dispatch on the dataset name
 of the JAX package's datasets/__init__.py (reference: model_wrapper.py
-setup_dataset): 'KITTI', 'ncdb' and 'Synthetic'. 'DGP' and 'Image' are not
-ported yet and raise.
+setup_dataset): 'KITTI', 'ncdb', 'DGP' (its `cameras` per dataset, by
+default ('CAMERA_01',)), 'Image' (which takes no depth) and 'Synthetic'.
 """
 
+from packnet_sfm_tpu_torch.datasets.dgp import DGPDataset
+from packnet_sfm_tpu_torch.datasets.image_dataset import ImageDataset
 from packnet_sfm_tpu_torch.datasets.kitti import KITTIDataset
 from packnet_sfm_tpu_torch.datasets.ncdb import NcdbDataset
 from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticDataset
 from packnet_sfm_tpu_torch.datasets.transforms import get_transforms
-
-_NOT_PORTED = {
-    'DGP': 'ROADMAP.md section 1: the Image and DGP datasets',
-    'Image': 'ROADMAP.md section 1: the Image and DGP datasets',
-}
 
 
 def setup_dataset(split_cfg, augmentation_cfg, mode, seed=0):
@@ -30,6 +27,7 @@ def setup_dataset(split_cfg, augmentation_cfg, mode, seed=0):
     input_depth_types = split_cfg.get('input_depth_type', [''] * len(names))
     mask_files = split_cfg.get('mask_file', [''] * len(names))
     use_masks = split_cfg.get('use_mask', [False] * len(names))
+    cameras = split_cfg.get('cameras', [[]])
     back = split_cfg.get('back_context', 0)
     forward = split_cfg.get('forward_context', 0)
 
@@ -49,9 +47,6 @@ def setup_dataset(split_cfg, augmentation_cfg, mode, seed=0):
 
     datasets = []
     for i, name in enumerate(names):
-        if name in _NOT_PORTED:
-            raise NotImplementedError('dataset {!r} is not ported yet ({})'
-                                      .format(name, _NOT_PORTED[name]))
         if name == 'KITTI':
             datasets.append(KITTIDataset(
                 path=pick(paths, i, ''), split=pick(splits, i, ''),
@@ -66,6 +61,19 @@ def setup_dataset(split_cfg, augmentation_cfg, mode, seed=0):
                 input_depth_type=pick(input_depth_types, i, ''),
                 mask_file=pick(mask_files, i, ''),
                 use_mask=pick(use_masks, i, False), transform=transforms[i]))
+        elif name == 'DGP':
+            datasets.append(DGPDataset(
+                path=pick(paths, i, ''), split=pick(splits, i, ''),
+                cameras=pick(cameras, i, []) or ('CAMERA_01',),
+                depth_type=pick(depth_types, i, ''),
+                input_depth_type=pick(input_depth_types, i, ''),
+                back_context=back, forward_context=forward,
+                transform=transforms[i]))
+        elif name == 'Image':
+            datasets.append(ImageDataset(
+                path=pick(paths, i, ''), split=pick(splits, i, ''),
+                back_context=back, forward_context=forward,
+                transform=transforms[i]))
         elif name == 'Synthetic':
             datasets.append(SyntheticDataset(
                 num_samples=int(splits[i]) if str(splits[i]).isdigit()

@@ -8,7 +8,11 @@ DDP slice), the move of a collated batch onto the device, and
 Samples are decoded by a thread pool (Pillow and numpy release the GIL),
 collated into stacked numpy arrays, and a background thread keeps
 `prefetch` batches ahead of the consumer. The shuffle is keyed by
-(seed, epoch), so (epoch, batches consumed) resumes an epoch exactly.
+(seed, epoch), and a `batch_augment` (mixup, cutmix) draws each batch's
+augmentation from np.random.RandomState([seed, epoch, batch index]), so
+(epoch, batches consumed) resumes an epoch exactly. The JAX loader's
+collate draws mixup and cutmix from one RandomState(seed), whose position
+no checkpoint keeps.
 
 Unlike the JAX loader, whose producer thread dies on a sample that fails to
 load and leaves the consumer waiting, a failed batch raises its error from
@@ -76,17 +80,31 @@ def _tensors(value):
             yield from _tensors(v)
 
 
+def fold_cameras(value):
+    """A multi-camera batch with its camera axis folded into the batch axis:
+    every array or tensor of 3 or more dimensions, in dicts and lists too,
+    [B, N, ...] -> [B*N, ...] (the JAX package's fold_multicam_batch;
+    reference models/model_utils.py:68-94)."""
+    if isinstance(value, dict):
+        return {k: fold_cameras(v) for k, v in value.items()}
+    if isinstance(value, list):
+        return [fold_cameras(v) for v in value]
+    if getattr(value, 'ndim', 0) >= 3:
+        return value.reshape((-1,) + tuple(value.shape[2:]))
+    return value
+
+
 def to_device_batch(batch, device):
     """A collated batch without its host-only keys, its numpy arrays (in
     dicts and lists too) as tensors on `device`. Tensors move to `device`;
-    strings stay. A multi-camera batch (rgb [B,N,H,W,3], DGP) raises."""
+    strings stay. A multi-camera batch (rgb [B,N,H,W,3], DGP) has its
+    cameras folded into the batch axis (`fold_cameras`), as the JAX
+    trainer's _host_prepare does."""
+    batch = {k: v for k, v in batch.items() if k not in HOST_KEYS}
     rgb = batch.get('rgb')
     if rgb is not None and rgb.ndim == 5:
-        raise NotImplementedError(
-            'multi-camera (DGP) batches are not ported yet (ROADMAP.md '
-            'section 1: the Image and DGP datasets)')
-    return {k: _to_device(v, device) for k, v in batch.items()
-            if k not in HOST_KEYS}
+        batch = fold_cameras(batch)
+    return {k: _to_device(v, device) for k, v in batch.items()}
 
 
 def prefetch_to_device(iterator, device, size=2):
@@ -144,6 +162,7 @@ class _BatchIterator:
 
     def __init__(self, loader, indices, start, n_batches):
         self._loader = loader
+        epoch = loader.epoch
         self._queue = queue.Queue(maxsize=loader.prefetch)
         self._done = False
         bs = loader.batch_size
@@ -155,6 +174,10 @@ class _BatchIterator:
                     try:
                         item = loader.collate_fn(
                             list(pool.map(loader.dataset.__getitem__, chunk)))
+                        if loader.batch_augment is not None:
+                            item = loader.batch_augment(
+                                item, np.random.RandomState(
+                                    [loader.seed, epoch, b]))
                     except Exception as e:  # noqa: BLE001 — handed on
                         item = _Failure(e)
                     self._queue.put(item)
@@ -179,8 +202,13 @@ class _BatchIterator:
 
 
 class DataLoader:
+    """Batches of `dataset` (see the module note). `batch_augment`, when
+    given, is called as batch_augment(batch, rng) on each collated batch,
+    with rng the np.random.RandomState of (seed, epoch, batch index)."""
+
     def __init__(self, dataset, batch_size, shuffle=False, seed=42,
-                 num_workers=4, prefetch=2, drop_last=True, collate_fn=None):
+                 num_workers=4, prefetch=2, drop_last=True, collate_fn=None,
+                 batch_augment=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -189,6 +217,7 @@ class DataLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.collate_fn = collate_fn or default_collate
+        self.batch_augment = batch_augment
         self.epoch = 0
         self._consumed = 0
         self._skip = 0

@@ -7,7 +7,8 @@ package's datasets/transforms.py.
   nearest) and scale the intrinsics and the fisheye principal point ->
   keep un-jittered copies ('rgb_original', 'rgb_context_original') ->
   colour jitter (brightness, contrast, saturation, HSV hue; one set of
-  factors for the target and its contexts);
+  factors for the target and its contexts) -> the advanced augmentations
+  enabled in the config (RandAugment, random erasing; on 'rgb' only);
 - validation / test: crop the inputs (eval GT depth stays full-size) ->
   resize RGB (Pillow LANCZOS, after the float -> uint8 quantization) and
   the input depth (validation: the sparse-preserving scatter; test:
@@ -21,9 +22,11 @@ The JAX package draws the jitter from the global `np.random` unless given a
 generator, an order its loader threads do not fix. Here the jitter always
 takes an explicit `np.random.RandomState`: `TrainTransform` makes one per
 sample, keyed by (seed, dataset, epoch, sample index), so an epoch and a
-mid-epoch resume replay the same jitter. The factor distributions are the
-JAX package's. The advanced augmentations (RandAugment, random erasing)
-are not ported and raise.
+mid-epoch resume replay the same jitter, and the advanced augmentations
+draw from the same generator after it. The distributions are the JAX
+package's. A multi-camera (DGP) sample runs its transform once per camera,
+each keyed by the sample's index: the cameras of one sample share their
+draws, as a target and its contexts share the jitter.
 """
 
 import numpy as np
@@ -298,9 +301,11 @@ def colorjitter_sample(sample, parameters, rng):
 
 
 def train_transforms(sample, image_shape=(), jittering=(),
-                     crop_train_borders=(), rng=None):
-    """Crop, resize, keep the un-jittered copies, jitter. `rng` (an
-    np.random.RandomState) is required when `jittering` is set."""
+                     crop_train_borders=(), rng=None, advanced=()):
+    """Crop, resize, keep the un-jittered copies, jitter, then each of
+    `advanced` (callables (rgb, rng) -> rgb) on 'rgb'. `rng` (an
+    np.random.RandomState) is required when `jittering` or `advanced` is
+    set."""
     if len(crop_train_borders) > 0:
         borders = parse_crop_borders(crop_train_borders,
                                      sample['rgb'].shape[:2])
@@ -308,25 +313,28 @@ def train_transforms(sample, image_shape=(), jittering=(),
     if len(image_shape) > 0:
         sample = resize_sample(sample, tuple(image_shape))
     sample = duplicate_sample(sample)
+    if (len(jittering) > 0 or advanced) and rng is None:
+        raise ValueError('the colour jitter and the advanced augmentations '
+                         'need an explicit np.random.RandomState')
     if len(jittering) > 0:
-        if rng is None:
-            raise ValueError('the colour jitter needs an explicit '
-                             'np.random.RandomState')
         sample = colorjitter_sample(sample, jittering, rng)
+    for aug in advanced:
+        sample['rgb'] = aug(sample['rgb'], rng)
     return sample
 
 
 class TrainTransform:
-    """`train_transforms` with a generator per sample: the jitter of sample
-    `idx` in `epoch` is drawn from np.random.RandomState([seed, dataset,
-    epoch, idx]). `set_epoch` moves it on (DataLoader.set_epoch reaches it
-    through the dataset)."""
+    """`train_transforms` with a generator per sample: the jitter and the
+    `advanced` augmentations of sample `idx` in `epoch` are drawn from
+    np.random.RandomState([seed, dataset, epoch, idx]). `set_epoch` moves
+    it on (DataLoader.set_epoch reaches it through the dataset)."""
 
     def __init__(self, image_shape=(), jittering=(), crop_train_borders=(),
-                 seed=0, dataset=0):
+                 seed=0, dataset=0, advanced=()):
         self.image_shape = tuple(image_shape)
         self.jittering = tuple(jittering)
         self.crop_train_borders = tuple(crop_train_borders)
+        self.advanced = list(advanced)
         self.key = (int(seed), int(dataset))
         self.epoch = 0
 
@@ -337,28 +345,22 @@ class TrainTransform:
         rng = np.random.RandomState(
             self.key + (self.epoch, int(sample['idx'])))
         return train_transforms(sample, self.image_shape, self.jittering,
-                                self.crop_train_borders, rng)
-
-
-def _refuse_advanced(augmentation):
-    for name in ('randaugment', 'random_erasing'):
-        if (augmentation or {}).get(name, {}).get('enabled', False):
-            raise NotImplementedError(
-                'datasets.augmentation.{} is not ported yet (ROADMAP.md '
-                'section 1, item 17: datasets/augmentations_advanced.py)'
-                .format(name))
+                                self.crop_train_borders, rng, self.advanced)
 
 
 def get_transforms(mode, image_shape=(), jittering=(), crop_train_borders=(),
                    crop_eval_borders=(), augmentation=None, seed=0,
                    dataset=0):
     """The sample transform of a split: 'train' (a TrainTransform keyed by
-    `seed` and `dataset`; RandAugment and random erasing raise),
-    'validation' or 'test'."""
+    `seed` and `dataset`, with the advanced augmentations `augmentation`
+    enables), 'validation' or 'test'."""
     if mode == 'train':
-        _refuse_advanced(augmentation)
+        # imported here: augmentations_advanced builds on this module
+        from packnet_sfm_tpu_torch.datasets.augmentations_advanced import (
+            make_sample_augmentations)
         return TrainTransform(image_shape, jittering, crop_train_borders,
-                              seed, dataset)
+                              seed, dataset,
+                              make_sample_augmentations(augmentation or {}))
     if mode == 'validation':
         return lambda s: validation_transforms(s, image_shape,
                                                crop_eval_borders)

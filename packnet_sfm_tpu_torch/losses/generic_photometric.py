@@ -7,8 +7,9 @@ losses/generic_multiview_photometric_loss.py:92-402):
   coeff = min((100 * progress)^(4/3) / 100, 1) ramping the learned residual
   in, normalised to unit rays (at progress 0 the residual, and so the
   ray-surface head, gets no gradient);
-- the template is the pinhole rays of the batch intrinsics (the JAX loss
-  also takes a ray-template array, which no caller passes);
+- the template is `ray_template` ([B,H,W,3] or [H,W,3] rays) when given,
+  else the pinhole rays of the batch intrinsics (no caller of either
+  package passes a template);
 - per context: a GenericCamera and a reference camera at the context pose,
   the depth reconstructed to the world frame, projected by the softmax
   window match (half resolution unless `full_res_projection`) and sampled
@@ -42,11 +43,12 @@ class GenericMultiViewPhotometricLoss(MultiViewPhotometricLoss):
         self.full_res_projection = full_res_projection
 
     def __call__(self, image, context, inv_depths, poses, ray_surface=None,
-                 K=None, progress=0.0):
+                 K=None, ray_template=None, progress=0.0):
         """image [B,H,W,3]; context: reference images; inv_depths per scale;
         poses: list of Pose (target -> context); ray_surface: the network's
-        {('raysurf', 0): [B,H,W,3]} residual; K [B,3,3] for the pinhole
-        template. Returns {'loss', 'metrics'}."""
+        {('raysurf', 0): [B,H,W,3]} residual; ray_template: the canonical
+        rays the residual is added to, else K [B,3,3]'s pinhole rays.
+        Returns {'loss', 'metrics'}."""
         n = ProgressiveScaling(self.progressive_scaling,
                                self.num_scales)(progress)
         inv_depths = inv_depths[:n]
@@ -54,9 +56,12 @@ class GenericMultiViewPhotometricLoss(MultiViewPhotometricLoss):
         H, W = image.shape[1], image.shape[2]
 
         residual = ray_surface[('raysurf', 0)]
-        if K is None:
+        if ray_template is not None:
+            template = ray_template
+        elif K is None:
             raise ValueError('Need intrinsics to derive a ray template')
-        template = pinhole_ray_surface(K, H, W, image.dtype)
+        else:
+            template = pinhole_ray_surface(K, H, W, image.dtype)
         prog = torch.tensor(float(progress), dtype=torch.float32)
         coeff = float(torch.clamp((100.0 * prog) ** (4.0 / 3.0) / 100.0,
                                   max=1.0))

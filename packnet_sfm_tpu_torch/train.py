@@ -16,7 +16,7 @@ Adam's state (trainers/trainer.py).
 trains `--n-steps` steps on batches held in memory instead (`main`): seeded
 weights, KITTI-structured RGB + LiDAR + GT batches drawn from a seed at the
 YAML's train batch size and image shape (eval.py `make_batches`), for
-configs whose dataset is not ported and for timing the step alone. A model
+configs whose data is not on disk and for timing the step alone. A model
 with a pose net gets `back_context + forward_context` context frames
 (datasets.train) and intrinsics in each batch, for the photometric loss.
 

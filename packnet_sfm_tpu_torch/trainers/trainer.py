@@ -50,6 +50,9 @@ import numpy as np
 import torch
 
 from packnet_sfm_tpu_torch.datasets import setup_dataset
+from packnet_sfm_tpu_torch.datasets.augmentations_advanced import (
+    make_batch_augment)
+from packnet_sfm_tpu_torch.datasets.cache import SampleCache
 from packnet_sfm_tpu_torch.datasets.concat import ConcatDataset
 from packnet_sfm_tpu_torch.datasets.loader import (
     DataLoader, prefetch_to_device, to_device_batch)
@@ -160,37 +163,43 @@ def make_loader(config, split, dataset_idx=None):
     over all its datasets concatenated or only dataset `dataset_idx`; None
     when the split names no dataset. Under tpu.device_augment the train
     split ships un-jittered images (the step jitters them on the card).
-    Mixup and cutmix raise."""
+    datasets.<split>.cache ('ram' or 'disk', under cache_dir) wraps the
+    split in a SampleCache, which a train split whose transform is random
+    on the host refuses with a warning, as JAX does; the train split's
+    mixup and cutmix run on its batches (`make_batch_augment`)."""
     cfg = config.datasets[split]
     aug = config.datasets.augmentation
-    if split == 'train':
-        for name in ('mixup', 'cutmix'):
-            if aug.get(name, {}).get('enabled', False):
-                raise NotImplementedError(
-                    'datasets.augmentation.{} is not ported yet (ROADMAP.md '
-                    'section 1, item 17: datasets/augmentations_advanced.py)'
-                    .format(name))
-        if config.tpu.get('device_augment', False):
-            aug = aug.clone()
-            aug.jittering = ()
+    device_augment = bool(config.tpu.get('device_augment', False))
+    if split == 'train' and device_augment:
+        aug = aug.clone()
+        aug.jittering = ()
     datasets = setup_dataset(cfg, aug, split, seed=int(config.arch.seed))
     if not datasets:
         return None
     if dataset_idx is not None:
         datasets = [datasets[dataset_idx]]
-    if cfg.get('cache', ''):
-        raise NotImplementedError('datasets.{}.cache is not ported yet '
-                                  '(ROADMAP.md section 1: the sample cache)'
-                                  .format(split))
     repeats = cfg.get('repeat', [1] * len(datasets))
     ds = ConcatDataset(datasets, repeats) if len(datasets) > 1 or \
         (repeats and repeats[0] > 1) else datasets[0]
+    if cfg.get('cache', ''):
+        if split != 'train' or SampleCache.validate_transform(
+                config.datasets.augmentation, device_augment):
+            ds = SampleCache(ds, mode=cfg.cache,
+                             cache_dir=cfg.get('cache_dir', '') or None)
+        else:
+            print(pcolor(
+                '[cache] disabled for train split: host-side random '
+                'augmentation would be frozen (enable tpu.device_augment '
+                'or drop jittering)', 'red'))
     # train keeps static shapes; eval sees every sample (the reference
     # asserts all samples seen, utils/reduce.py:67-68)
     return DataLoader(ds, batch_size=cfg.batch_size,
                       shuffle=(split == 'train'), seed=config.arch.seed,
                       num_workers=cfg.num_workers,
-                      drop_last=(split == 'train'))
+                      drop_last=(split == 'train'),
+                      batch_augment=make_batch_augment(
+                          config.datasets.augmentation)
+                      if split == 'train' else None)
 
 
 def make_val_loaders(config, split='validation'):

@@ -2,7 +2,8 @@
 the JAX package's, on the NCDB fixture tree of tests/test_datasets.py and
 on the synthetic dataset: the same keys, bit-equal arrays, the same batches
 in the same order. Also the NCDB divide-by-256 quirk, the loader's resume
-and failure handling, `to_device_batch` and `setup_dataset`'s refusals.
+and failure handling, `to_device_batch` with its camera fold, and
+`setup_dataset`'s dispatch.
 
 Tolerance: none, bit-equal (the same numpy and Pillow operations).
 """
@@ -157,8 +158,18 @@ def test_to_device_batch_drops_host_keys_and_refuses_multicam():
     assert isinstance(dev['rgb_context'][0], torch.Tensor)
     assert isinstance(dev['distortion_coeffs']['k'], torch.Tensor)
     assert dev['tag'] == 'x'
-    with pytest.raises(NotImplementedError, match='DGP'):
-        to_device_batch({'rgb': np.zeros((2, 3, 4, 4, 3))}, 'cpu')
+    # a multi-camera batch has its cameras folded into the batch axis
+    # (against JAX's fold: tests/test_torch_image_dgp.py)
+    multi = to_device_batch({'rgb': np.zeros((2, 3, 4, 4, 3)),
+                             'pose': np.zeros((2, 3, 4, 4)),
+                             'rgb_context': [np.zeros((2, 3, 4, 4, 3))],
+                             'sensor_name': 'cam', 'scale': np.ones(2)},
+                            'cpu')
+    assert sorted(multi) == ['pose', 'rgb', 'rgb_context', 'scale']
+    assert multi['rgb'].shape == (6, 4, 4, 3)
+    assert multi['pose'].shape == (6, 4, 4)
+    assert multi['rgb_context'][0].shape == (6, 4, 4, 3)
+    assert multi['scale'].shape == (2,)
 
 
 def test_setup_dataset_matches_jax_and_refuses_unported(ncdb_root):
@@ -173,12 +184,18 @@ def test_setup_dataset_matches_jax_and_refuses_unported(ncdb_root):
     assert_same(got[0][1], want[0][1])
     assert got[0][1]['rgb'].shape == (16, 24, 3)
     assert got[0][1]['depth'].shape == (32, 48, 1)   # GT stays full-size
-    # KITTI is ported (tests/test_torch_kitti_data.py)
-    for name in ('DGP', 'Image'):
+    # KITTI, DGP and Image are ported (tests/test_torch_kitti_data.py,
+    # test_torch_image_dgp.py): on this NCDB tree they find no scene and
+    # the root's one image, as JAX's readers do
+    for name, n in (('DGP', 0), ('Image', 1)):
         node = cfg.datasets.test.clone()
-        node.dataset = [name]
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            setup_dataset(node, cfg.datasets.augmentation, 'test')
+        node.dataset, node.split = [name], ['']
+        (got,) = setup_dataset(node, cfg.datasets.augmentation, 'test')
+        (want,) = j_setup_dataset(node, cfg.datasets.augmentation, 'test')
+        assert type(got).__name__ == type(want).__name__
+        assert len(got) == len(want) == n
+        for i in range(n):
+            assert_same(got[i], want[i])
     # train mode builds the train transform; with the jitter off a train
     # sample equals the JAX package's
     aug = cfg.datasets.augmentation.clone()
@@ -188,5 +205,6 @@ def test_setup_dataset_matches_jax_and_refuses_unported(ncdb_root):
     assert_same(got[0][1], want[0][1])
     assert got[0][1]['depth'].shape == (16, 24, 1)   # train resizes GT too
     aug.random_erasing.enabled = True
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        setup_dataset(cfg.datasets.test, aug, 'train')
+    (ds,) = setup_dataset(cfg.datasets.test, aug, 'train')
+    assert [type(a).__name__ for a in ds.transform.advanced] == [
+        'RandomErasing']

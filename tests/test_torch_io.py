@@ -108,8 +108,8 @@ def test_crop_borders_and_eval_transforms_match_jax(borders):
     K = np.arange(9, dtype=np.float32).reshape(3, 3)
     np.testing.assert_array_equal(ttr.scale_intrinsics(K, 0.5, 2.0),
                                   jtr._scale_intrinsics_np(K, 0.5, 2.0))
-    # the train transform exists now; the advanced augmentations raise
+    # the train transform exists, with the advanced augmentations enabled
     assert isinstance(ttr.get_transforms('train'), ttr.TrainTransform)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ttr.get_transforms('train', augmentation={
-            'randaugment': {'enabled': True}})
+    t = ttr.get_transforms('train', augmentation={
+        'randaugment': {'enabled': True}})
+    assert [type(a).__name__ for a in t.advanced] == ['RandAugment']

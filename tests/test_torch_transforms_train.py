@@ -4,7 +4,7 @@ distortion_coeffs, depth kept sparse), duplicate_sample, the host jitter
 with hue given the same np.random.RandomState, the whole train pipeline,
 TrainTransform's per-sample generator keyed by (seed, dataset, epoch,
 index), ops/augment.py's `_adjust` / `_hue_rotate` on the same factors and
-the untouched originals, and the refusals of what is not ported.
+the untouched originals, and the advanced augmentations' configuration.
 
 Tolerances: host transforms are the same numpy arithmetic, held at atol
 1e-6 (measured exact); the jitter on tensors at atol 1e-6 (float32 in
@@ -20,7 +20,7 @@ import jax.numpy as jnp
 from packnet_sfm_tpu.datasets import transforms as jtr
 from packnet_sfm_tpu.ops import augment as jaug
 from packnet_sfm_tpu_torch.config import parse_train_config
-from packnet_sfm_tpu_torch.datasets import setup_dataset, transforms as ttr
+from packnet_sfm_tpu_torch.datasets import transforms as ttr
 from packnet_sfm_tpu_torch.datasets.loader import (
     DataLoader, prefetch_to_device)
 from packnet_sfm_tpu_torch.ops import augment as taug
@@ -192,18 +192,22 @@ def test_prefetch_on_the_cpu_moves_batches_in_order():
 
 
 def test_refusals_name_the_roadmap(tmp_path):
+    """What this test once found refused is ported: RandAugment and random
+    erasing build into the train transform (and the train split:
+    tests/test_torch_datasets.py), mixup and
+    cutmix into the train loader's batch augmentation (their values against
+    JAX: tests/test_torch_advanced_aug.py)."""
+    from packnet_sfm_tpu_torch.datasets import augmentations_advanced as adv
     cfg = parse_train_config(CONFIG)
-    for name in ('randaugment', 'random_erasing'):
+    for name, kind in (('randaugment', adv.RandAugment),
+                       ('random_erasing', adv.RandomErasing)):
         aug = cfg.datasets.augmentation.clone()
         aug[name].enabled = True
-        with pytest.raises(NotImplementedError, match='ROADMAP.md section '
-                                                      '1, item 17'):
-            ttr.get_transforms('train', augmentation=aug)
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            setup_dataset(cfg.datasets.train, aug, 'train')
+        t = ttr.get_transforms('train', augmentation=aug)
+        assert [type(a) for a in t.advanced] == [kind]
     for name in ('mixup', 'cutmix'):
-        c = parse_train_config(CONFIG, ['datasets.augmentation.{}.enabled'
-                                        .format(name), True])
-        with pytest.raises(NotImplementedError, match='ROADMAP.md section '
-                                                      '1, item 17'):
-            make_loader(c, 'train')
+        c = parse_train_config(CONFIG, [
+            'datasets.augmentation.{}.enabled'.format(name), True,
+            'datasets.train.dataset', ['Synthetic'],
+            'datasets.train.split', ['4']])
+        assert make_loader(c, 'train').batch_augment is not None
