@@ -214,6 +214,38 @@ it, with nothing of JAX:
    2 warp forward and 2 dgrid launches a step, and the projection and
    warp kernels against their plain versions on a step of a batch from
    disk (192x192 and 384x384 planes); chiprun_out/chip_smoke_image_dgp.json;
+   then the PackNet family (phase P): a KITTI_raw drive of 12 frames at
+   375x1242 and DGP trees at DDAD's 1216x1936 written with the port's
+   writers; P1, configs/train_packnet_san_kitti.yaml as written but for its
+   data (PackNetSAN01 1A, B4 on the 352x1216 crop, bf16, velodyne in)
+   through train.fit for 2 epochs of 2 steps with its two validation
+   datasets: 30 forward and 27 dgrad masked-conv launches a step, 30 a
+   validation, quick-eval or logged-image frame with LiDAR; the step alone
+   on a batch the phase collates, its peak memory, img/s with data; the
+   masked-conv kernels against their plain versions at the step's 30
+   shapes (fp32 and bf16), each launch in a CUDA graph beside cuDNN's and
+   its bound, by SAN level; configs/eval_packnet_san_kitti.yaml (dropout
+   0.5, in eval) over the fit's checkpoint, its save pass included (30
+   launches a LiDAR frame in each pass), and in float32 through the
+   kernels against the plain versions (each metric within 1e-5 of max(1,
+   its value)); one float32 step against the plain versions at the train
+   step's limits; 10 steps on one batch, the loss falling; P1b,
+   PackNetSlimSAN01 with FiLM on scales 0 and 1 and san_row_window 0.5 at
+   B1: one float32 forward (12 launches, atol 1e-5) and step (12 forward
+   and 9 dgrad) against the plain versions; P2, configs/train_ddad.yaml
+   (PackNet01 1A + PoseNet, B2 384x640 bf16, camera_01, repeat 5 -> 1)
+   through train.fit for 2 epochs of 2 steps: 2 warp forward and 2 dgrid
+   launches a step, the step alone, peak memory, img/s with data; 2 steps
+   under the float32 maps (also 10 photometric forward and 8 backward a
+   step), one float32 step against the plain versions (PoseNet's conv1
+   bias, zero analytically behind a one-channel-a-group GroupNorm, held
+   apart as rounding), the kernels against theirs on its inputs, and 10
+   steps on one batch, the loss falling; P3,
+   configs/train_packnet_san_ddad.yaml (dropout 0.5) with validate_first
+   over a four-camera tree: its 4 single-camera train entries and 8
+   validation entries, finite losses, 30 launches a validation frame with
+   LiDAR and none in training, the validation run twice bit for bit;
+   chiprun_out/chip_smoke_packnet.json;
 4. (d) time eval img/s at B1 and the train step and img/s at B8, the
    forward kernel at the eval shapes and both kernels at the train shapes
    beside their plain versions, the library yardstick (one cuDNN call the
@@ -245,7 +277,7 @@ chiprun_out/chip_smoke_selfsup.json, chiprun_out/chip_smoke_generic.json,
 chiprun_out/chip_smoke_gather.json, chiprun_out/chip_smoke_cli.json,
 chiprun_out/chip_smoke_train_disk.json,
 chiprun_out/chip_smoke_dual_head.json, chiprun_out/chip_smoke_kitti.json
-and chiprun_out/chip_smoke_image_dgp.json.
+chiprun_out/chip_smoke_image_dgp.json and chiprun_out/chip_smoke_packnet.json.
 """
 
 import contextlib
@@ -276,6 +308,10 @@ TRAIN_RUNS = ((4, 2), (10, 1))        # (steps, batches) of the two runs
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_REL = 1e-1
 TRAIN_GRAD_NORM = 2e-2
+# a gradient that is zero analytically (`gn_cancelled_biases`): float32
+# rounding of a sum over the batch's pixels, within this share of the
+# largest gradient in each run
+CANCELLED_NOISE = 1e-5
 SELFSUP_CONFIG = 'packnet_sfm_tpu_torch/configs/selfsup_kitti_192x640.yaml'
 FP32_MAPS = ['tpu.photometric_dtype', 'float32', 'tpu.use_pallas', True]
 WARPS_PER_STEP = 2                     # one per context frame
@@ -321,6 +357,27 @@ DDAD_POINTS = 20000                    # LiDAR points a sweep
 DDAD_EPOCHS = 2                        # of 3 steps (12 samples, B4)
 OMNICAM_NATIVE = (768, 768)            # the phase I Image folder's frames
 OMNICAM_FRAMES = 8
+PACKNET_SAN_KITTI = 'configs/train_packnet_san_kitti.yaml'
+PACKNET_SAN_EVAL = 'configs/eval_packnet_san_kitti.yaml'
+PACKNET_DDAD = 'configs/train_ddad.yaml'
+PACKNET_SAN_DDAD = 'configs/train_packnet_san_ddad.yaml'
+# the phase P KITTI drive's splits: train frames with both contexts (two
+# steps of B4), validation frames
+P1_TRAIN, P1_VAL = range(1, 9), (9, 10)
+P_EPOCHS = 2                           # P1 and P2: 2 epochs of 2 steps
+# the phase P DGP trees: P2's camera_01 over 2 scenes x 4 samples (2 with
+# both contexts a scene: 2 steps of B2); P3's four cameras over 1 scene x 3
+# samples (1 train sample a camera, 3 validation frames an entry)
+P2_SCENES, P2_SAMPLES = 2, 4
+P_CAMERAS = ('camera_01', 'camera_05', 'camera_06', 'camera_09')
+P3_SCENES, P3_SAMPLES = 1, 3
+# P1b: the FiLM fusion (2 sparse stages of 6 convs; the 3 of stage 0 that
+# read the LiDAR take no input gradient) under the row-window crop
+P1B = ['model.depth_net.name', 'PackNetSlimSAN01',
+       'model.depth_net.use_film', True, 'model.depth_net.film_scales',
+       [0, 1], 'model.depth_net.san_row_window', 0.5,
+       'datasets.train.batch_size', 1]
+P1B_FWD, P1B_DGRAD = 12, 9
 # fp32 adds: one instruction a lane a clock, 128 lanes an SM, 132 SMs at
 # 1.98 GHz (the 67 TFLOP/s peak counts an FMA as two)
 H100_FP32_ADDS_PER_S = 132 * 128 * 1.98e9
@@ -1022,6 +1079,23 @@ def main():
                     row['launches'] += got[key]
                     row['launches_by_path'][path] = got[key]
 
+    # ---------------------------------------------------------------- P
+    packnet_launches, packnet_convs = packnet_phase(
+        card, dev, gen, reset_counts, read_counts)
+    for got in packnet_launches.values():
+        counts['fwd'] += got['san_fwd']
+        counts['dgrad'] += got['san_dgrad']
+    for row in selfsup_rows:
+        key = {'warp_bilinear_out': 'warp_out',
+               'warp_bilinear_dgrid': 'warp_dgrid',
+               'photometric_fwd': 'photo_fwd',
+               'photometric_bwd': 'photo_bwd'}.get(row['name'])
+        if key:
+            for path, got in packnet_launches.items():
+                if got[key]:
+                    row['launches'] += got[key]
+                    row['launches_by_path'][path] = got[key]
+
     # ---------------------------------------------------------------- 4
     step = make_eval_step(model)
     fwd_ms = cuda_time_ms(lambda: step(batch), iters=20)
@@ -1135,6 +1209,9 @@ def main():
                                 for k, v in dual_launches.items()},
                              **{k: v['san_fwd']
                                 for k, v in kitti_launches.items()
+                                if v['san_fwd']},
+                             **{k: v['san_fwd']
+                                for k, v in packnet_launches.items()
                                 if v['san_fwd']}},
         'reduce_launches': reduce_totals['san_fwd'],
         'max_abs_err': max_err['float32'],
@@ -1154,7 +1231,11 @@ def main():
         'kitti_k2_step_graph_ms': kitti_convs['forward']['graph_ms'],
         'kitti_k2_step_library_graph_ms':
             kitti_convs['forward']['library_graph_ms'],
-        'kitti_k2_step_bound_ms': kitti_convs['forward']['bound_ms']}, {
+        'kitti_k2_step_bound_ms': kitti_convs['forward']['bound_ms'],
+        'packnet_p1_step_graph_ms': packnet_convs['forward']['graph_ms'],
+        'packnet_p1_step_library_graph_ms':
+            packnet_convs['forward']['library_graph_ms'],
+        'packnet_p1_step_bound_ms': packnet_convs['forward']['bound_ms']}, {
         'name': 'san_masked_conv2d_dgrad', 'route': 'cuda',
         'source': 'packnet_sfm_tpu_torch/csrc/san_conv.cu',
         'replaces': 'packnet_sfm_tpu/ops/pallas/san_conv.py:184',
@@ -1167,6 +1248,9 @@ def main():
                                 for k, v in dual_launches.items()},
                              **{k: v['san_dgrad']
                                 for k, v in kitti_launches.items()
+                                if v['san_dgrad']},
+                             **{k: v['san_dgrad']
+                                for k, v in packnet_launches.items()
                                 if v['san_dgrad']}},
         'reduce_launches': reduce_totals['san_dgrad'],
         'max_abs_err': dmax_err['float32'],
@@ -1181,7 +1265,11 @@ def main():
         'kitti_k2_step_graph_ms': kitti_convs['dgrad']['graph_ms'],
         'kitti_k2_step_library_graph_ms':
             kitti_convs['dgrad']['library_graph_ms'],
-        'kitti_k2_step_bound_ms': kitti_convs['dgrad']['bound_ms']}] +
+        'kitti_k2_step_bound_ms': kitti_convs['dgrad']['bound_ms'],
+        'packnet_p1_step_graph_ms': packnet_convs['dgrad']['graph_ms'],
+        'packnet_p1_step_library_graph_ms':
+            packnet_convs['dgrad']['library_graph_ms'],
+        'packnet_p1_step_bound_ms': packnet_convs['dgrad']['bound_ms']}] +
         selfsup_rows +
         generic_rows + gather_rows}))
     log(card)
@@ -3286,7 +3374,26 @@ def step_alone_ms(step, batch, n_timed=5):
     return (time.perf_counter() - t0) * 1e3 / n_timed
 
 
-def kernel_step_check(tag, config, overrides, batch, want_launches):
+def gn_cancelled_biases(model):
+    """The conv biases that feed a GroupNorm of one channel a group
+    directly (PoseNet's 16-channel conv1): the norm subtracts each
+    channel's mean, so their gradient is zero analytically and what a step
+    computes for them is float32 rounding."""
+    import torch.nn as nn
+    names = []
+    for name, mod in model.named_modules():
+        conv, norm = getattr(mod, 'Conv_0', None), getattr(
+            mod, 'GroupNorm_0', None)
+        if isinstance(conv, nn.Conv2d) and isinstance(norm, nn.GroupNorm) \
+                and conv.bias is not None and \
+                norm.num_groups == norm.num_channels == conv.out_channels \
+                and not hasattr(mod, 'Conv2D_0'):
+            names.append('{}.Conv_0.bias'.format(name))
+    return names
+
+
+def kernel_step_check(tag, config, overrides, batch, want_launches,
+                      cancelled=False):
     """One float32 step of `config` under `overrides` on `batch` through
     the kernels, through every plain version under plain autograd, and
     (the control) plain on the batch's samples in reverse order: the loss
@@ -3295,7 +3402,11 @@ def kernel_step_check(tag, config, overrides, batch, want_launches):
     the readings and the recorded launches of the warp and photometric
     kernels: ('warp', (img, grid, mode, g)) and ('photo', (x, y, g,
     need_dy)) for the backward, ('photo', (x, y, None, False)) for the
-    forward."""
+    forward. With `cancelled`, the leaves of `gn_cancelled_biases` are held
+    apart: zero analytically, both runs' values must be float32 rounding,
+    within CANCELLED_NOISE of the largest gradient (the 1e-6 magnitude rule
+    of `compare_grads` can read such a leaf as nonzero and then compares
+    rounding with rounding)."""
     from packnet_sfm_tpu_torch import train as port_train
     from packnet_sfm_tpu_torch.ops.kernels import photometric, san_conv, warp
     _, model = port_train.build(config, batch['rgb'].device, seed=0,
@@ -3316,6 +3427,22 @@ def kernel_step_check(tag, config, overrides, batch, want_launches):
     launched = {k: fn.launches - before[k] for k, fn in kernels.items()}
     (loss_p, gp), (_, gr) = step_gradients(
         model, ((True, batch), (True, reversed_batch(batch))))
+    noise = None
+    if cancelled:
+        names = gn_cancelled_biases(model)
+        gmax = max(float(g.abs().max()) for g in gp.values())
+        noise = max([float(g[n].abs().max()) / gmax for g in (gk, gp, gr)
+                     for n in names] or [0.0])
+        for g in (gk, gp, gr):
+            for n in names:
+                del g[n]
+        log('{}: {} conv biases into one-channel GroupNorm groups (zero '
+            'analytically), their gradients at most {:.2e} of the largest'
+            .format(tag, len(names), noise))
+        if not names or noise > CANCELLED_NOISE:
+            raise AssertionError('{}: cancelled biases {} at {:.2e} of the '
+                                 'largest gradient'.format(tag, names,
+                                                           noise))
     del model
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     grad_check = compare_grads(gk, gp)
@@ -3344,7 +3471,8 @@ def kernel_step_check(tag, config, overrides, batch, want_launches):
               rec['bwd']]
     cases += [('photo', (x, y, None, False)) for x, y, *_ in rec['fwd']]
     return {'loss_rel': loss_rel, 'grad': grad_check, 'launches': launched,
-            'plain_reversed_batch_vs_plain': order_check}, cases
+            'plain_reversed_batch_vs_plain': order_check,
+            'cancelled_bias_noise': noise}, cases
 
 
 def check_recorded_kernels(tag, cases):
@@ -3390,7 +3518,7 @@ def check_recorded_kernels(tag, cases):
     return err
 
 
-def kitti_conv_rows(convs, dtype, gen):
+def kitti_conv_rows(convs, dtype, gen, tag='K2'):
     """The masked-conv kernels at K2's shapes: each forward conv (fp32 and
     bf16) and each dgrad (those whose input needs a gradient) against its
     plain version under section 2's rule, with exact zeros at inactive
@@ -3412,8 +3540,8 @@ def kitti_conv_rows(convs, dtype, gen):
             args = conv_inputs(mod, mask, dt, gen)
             got = san_conv.masked_conv2d(*args)
             torch.cuda.synchronize()
-            name = 'K2 conv {} {} {}'.format(i, tuple(args[0].shape[1:]),
-                                             key)
+            name = '{} conv {} {} {}'.format(tag, i,
+                                             tuple(args[0].shape[1:]), key)
             want = san_conv.masked_conv2d_reference(*args)
             max_err['fwd_' + key] = max(max_err.get('fwd_' + key, 0.0),
                                         check_kernel(name, got, want, dt))
@@ -3427,12 +3555,12 @@ def kitti_conv_rows(convs, dtype, gen):
             torch.cuda.synchronize()
             max_err['dgrad_' + key] = max(
                 max_err.get('dgrad_' + key, 0.0), check_kernel(
-                    'K2 dgrad {} {}'.format(i, key), got,
+                    '{} dgrad {} {}'.format(tag, i, key), got,
                     san_conv.masked_conv2d_dgrad_reference(*gargs), dt))
             if bool((got[halo_empty(mask, k)[..., 0]] != 0).any()):
-                raise AssertionError('K2 dgrad {}: nonzero input gradient '
+                raise AssertionError('{} dgrad {}: nonzero input gradient '
                                      'with no active site in the halo'
-                                     .format(i))
+                                     .format(tag, i))
         # timings in the path's dtype, in a CUDA graph
         x, mk, kern, bias = conv_inputs(mod, mask, dtype, gen)
         _, _, cin, cout = kern.shape
@@ -4293,6 +4421,446 @@ def image_dgp_phase(card, dev, gen, reset_counts, read_counts):
     with open('chiprun_out/chip_smoke_image_dgp.json', 'w') as f:
         json.dump(summary, f, indent=1, default=float)
     return launches
+
+
+def packnet_phase(card, dev, gen, reset_counts, read_counts):
+    """Phase P: the PackNet family (see the module note). Returns ({run:
+    launch counts} of the path runs, P1's masked-conv totals a step in a
+    CUDA graph)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from packnet_sfm_tpu_torch import eval as port_eval
+    from packnet_sfm_tpu_torch import train as port_train
+    from packnet_sfm_tpu_torch.config import parse_test_file
+    from packnet_sfm_tpu_torch.datasets.dgp import write_dgp_tree
+    from packnet_sfm_tpu_torch.datasets.kitti import write_kitti_tree
+    from packnet_sfm_tpu_torch.datasets.loader import to_device_batch
+    from packnet_sfm_tpu_torch.datasets.transforms import parse_crop_borders
+    from packnet_sfm_tpu_torch.trainers.trainer import (
+        make_loader, make_val_loaders, validate_multi)
+
+    summary = {'card': card, 'kitti_raw': list(KITTI_RAW),
+               'ddad_shape': list(DDAD_NATIVE), 'ddad_cameras':
+               list(P_CAMERAS), 'p2_tree': [P2_SCENES, P2_SAMPLES],
+               'p3_tree': [P3_SCENES, P3_SAMPLES]}
+    launches = {}
+    per_step = {'warp_out': WARPS_PER_STEP, 'warp_dgrid': WARPS_PER_STEP,
+                'photo_fwd': PHOTO_FWD_PER_STEP,
+                'photo_bwd': PHOTO_BWD_PER_STEP}
+    t_phase = time.perf_counter()
+
+    def expect(run, got, **want_counts):
+        want = dict.fromkeys(got, 0)
+        want.update(want_counts)
+        if got != want:
+            raise AssertionError('{}: launches {}, expected {}'.format(
+                run, got, want))
+        launches[run] = got
+
+    def fit(config, overrides):
+        """train.fit under `overrides` with an EpochRecorder: (trainer, its
+        train loader, the history, seconds, the launches)."""
+        logger = EpochRecorder()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = port_train.fit(config, dev, overrides, logger=logger)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = read_counts()
+        loader = make_loader(trainer.config, 'train')
+        losses = [logger.history[e]['train/loss']
+                  for e in range(trainer.max_epochs)]
+        steps = trainer.max_epochs * len(loader)
+        if trainer.step != steps or trainer.optimizer.count != steps or \
+                not np.all(np.isfinite(losses)):
+            raise AssertionError('{}: {} steps, {} updates, losses {}'.format(
+                config, trainer.step, trainer.optimizer.count, losses))
+        return trainer, loader, logger.history, seconds, got
+
+    def first_batch(loader):
+        """The loader's first samples collated and on the card, without
+        starting the loader's threads (PERF.md section 7)."""
+        return to_device_batch(loader.collate_fn([
+            loader.dataset[i] for i in range(loader.batch_size)]), dev)
+
+    def rates(history, epoch):
+        h = history[epoch]
+        return {'img_per_s_with_data': h['train/img_per_s'],
+                'data_ms_per_step': h['train/data_ms_per_step'],
+                'step_ms_per_step': h['train/step_ms_per_step']}
+
+    def alone_and_peak(step, batch):
+        """(ms of the step alone, peak device memory of it in GiB)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = step_alone_ms(step, batch)
+        return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def one_batch_falls(tag, config, overrides, batch, **want_per_step):
+        """10 steps on one batch: the launches and the loss falling."""
+        reset_counts()
+        run = port_train.main(config, dev, n_steps=10, batches=[batch],
+                              overrides=overrides)
+        expect(tag, read_counts(),
+               **{k: v * 10 for k, v in want_per_step.items()})
+        losses = run['losses']
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError('{}: the loss did not fall over 10 steps '
+                                 'on one batch: {}'.format(tag, losses))
+        return losses
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ------------------------------------------------------------ P1
+        root = os.path.join(tmp, 'kitti')
+        t0 = time.perf_counter()
+        n_frames = max(P1_VAL) + 2
+        write_kitti_tree(root, KITTI_RAW, n_frames, splits={
+            'train.txt': P1_TRAIN, 'val.txt': P1_VAL})
+        summary['write_kitti_s'] = time.perf_counter() - t0
+        ck = os.path.join(tmp, 'p1')
+        n_val = len(P1_VAL)
+        p1_data = ['datasets.train.path', [root],
+                   'datasets.train.split', ['train.txt'],
+                   'datasets.validation.path', [root, root],
+                   'datasets.validation.split', ['val.txt', 'val.txt'],
+                   'datasets.test.path', [root, root],
+                   'datasets.test.split', ['val.txt', 'val.txt']]
+        p1, loader, history, fit_s, got = fit(PACKNET_SAN_KITTI, p1_data + [
+            'arch.max_epochs', P_EPOCHS, 'arch.eval_subset_size', n_val,
+            'checkpoint.filepath', ck])
+        steps = len(loader)
+        every = max(1, int(steps * p1.config.arch.eval_progress_interval))
+        quick = len([b for b in range(1, steps) if b % every == 0])
+        # a step runs the SAN once (the RGB+D pass); an epoch validates
+        # the first validation dataset's frames with LiDAR (the second
+        # has none), quick-evaluates them `quick` times and logs one batch
+        # (B1)
+        expect('packnet_p1_fit', got,
+               san_fwd=CONVS_PER_FORWARD * P_EPOCHS * (
+                   steps + n_val * (1 + quick) + 1),
+               san_dgrad=DGRADS_PER_STEP * P_EPOCHS * steps)
+        batch = first_batch(loader)
+        bs = int(p1.config.datasets.train.batch_size)
+        shape = tuple(batch['rgb'].shape[1:3])
+        left, top, right, bottom = parse_crop_borders(
+            p1.config.datasets.augmentation.crop_train_borders, KITTI_RAW)
+        net = p1.model.depth_net
+        if type(net).__name__ != 'PackNetSAN01' or \
+                batch['rgb'].shape[0] != bs or \
+                shape != (bottom - top, right - left) or \
+                net.core.pre_calc.Conv_0.dtype != torch.bfloat16:
+            raise AssertionError('P1: {} B{} {} {}'.format(
+                type(net).__name__, batch['rgb'].shape[0], shape,
+                net.core.pre_calc.Conv_0.dtype))
+        convs = path_convs(p1.model, batch, train=True)
+        if len(convs) != CONVS_PER_FORWARD or \
+                sum(n for _, _, n in convs) != DGRADS_PER_STEP:
+            raise AssertionError('P1: {} masked convs a step, {} with an '
+                                 'input gradient'.format(
+                                     len(convs), sum(n for *_, n in convs)))
+        alone, peak = alone_and_peak(p1.train_step, batch)
+        last = rates(history, P_EPOCHS - 1)
+        summary['p1'] = {
+            'fit_s': fit_s, 'steps': p1.step, 'write_tree_s':
+            summary['write_kitti_s'],
+            'losses': [history[e]['train/loss'] for e in range(P_EPOCHS)],
+            'val_abs_rel': {k: v for k, v in p1.last_val_metrics.items()
+                            if k.endswith('/depth-abs_rel')},
+            **last, 'first_epoch': rates(history, 0),
+            'step_alone_ms': alone, 'img_per_s_step_alone': bs * 1e3 / alone,
+            'peak_gib': peak,
+            'launches_per_step': {'san_fwd': CONVS_PER_FORWARD,
+                                  'san_dgrad': DGRADS_PER_STEP}}
+        log('P1 train_packnet_san_kitti.yaml (PackNetSAN01 1A) through '
+            'train.fit, B{} {}x{} bf16 over a KITTI_raw drive at {}x{}: {} '
+            'epochs of {} steps in {:.1f} s, launches {} ({} forward and {} '
+            'dgrad masked-conv launches a step); epoch {}: {:.2f} img/s with '
+            'data, data {:.1f} ms | step {:.1f} ms a step; the step alone '
+            '{:.2f} ms = {:.2f} img/s, peak {:.2f} GiB; {}'.format(
+                bs, *shape, *KITTI_RAW, P_EPOCHS, steps, fit_s,
+                {k: v for k, v in got.items() if v}, CONVS_PER_FORWARD,
+                DGRADS_PER_STEP, P_EPOCHS - 1, last['img_per_s_with_data'],
+                last['data_ms_per_step'], last['step_ms_per_step'], alone,
+                bs * 1e3 / alone, peak, card))
+        run_dir = os.path.dirname(p1.config.checkpoint.filepath)
+        ckpts = sorted(f for f in os.listdir(run_dir) if f.endswith('.ckpt'))
+        dtype = net.core.pre_calc.Conv_0.dtype
+        del p1, net
+        torch.cuda.empty_cache()
+        errs, fwd_rows, dg_rows, paths = kitti_conv_rows(convs, dtype, gen,
+                                                         'P1')
+        del convs
+        levels = {'forward': level_lines(fwd_rows, 'P1 forward'),
+                  'dgrad': level_lines(dg_rows, 'P1 dgrad')}
+        tot = {d: {k: sum(r[k] for r in rows) for k in
+                   ('graph_ms', 'library_graph_ms', 'bound_ms', 'bytes_ms',
+                    'ops_ms')}
+               for d, rows in (('forward', fwd_rows), ('dgrad', dg_rows))}
+        summary['p1'].update(conv_max_err=errs, conv_paths=paths,
+                             levels=levels, conv_totals=tot)
+        log('P1 masked convs at their own shapes (B{} {}x{}: stage 0 32 '
+            'channels at half size .. stage 4 512 at 1/32), kernels vs '
+            'plain max |err| {}; launch paths {}; a step in a CUDA graph: '
+            'forward {:.4f} ms (cuDNN {:.4f}, bound {:.4f}), dgrad {:.4f} ms '
+            '(cuDNN {:.4f}, bound {:.4f}); {}'.format(
+                bs, *shape, {k: '{:.3e}'.format(v) for k, v in errs.items()},
+                paths, tot['forward']['graph_ms'],
+                tot['forward']['library_graph_ms'],
+                tot['forward']['bound_ms'], tot['dgrad']['graph_ms'],
+                tot['dgrad']['library_graph_ms'], tot['dgrad']['bound_ms'],
+                card))
+
+        # P1's eval: eval_packnet_san_kitti.yaml (dropout 0.5, in eval)
+        # over the fit's checkpoint, its save pass included; the merged
+        # test split keeps the velodyne entry (ROADMAP.md section 3)
+        if len(ckpts) != P_EPOCHS:
+            raise AssertionError('P1 checkpoints: {}'.format(ckpts))
+        ckpt = os.path.join(run_dir, ckpts[-1])       # the last epoch's
+        ev = ['datasets.test.path', [root], 'datasets.test.split',
+              ['val.txt'], 'save.folder', os.path.join(tmp, 'outputs')]
+        ev_cfg = parse_test_file(ckpt, PACKNET_SAN_EVAL, ev)[0]
+        n_lidar = sum('input_depth' in b for b in make_loader(ev_cfg,
+                                                                'test'))
+        reset_counts()
+        t0 = time.perf_counter()
+        m = port_eval.test(ckpt, PACKNET_SAN_EVAL, device=dev, overrides=ev)
+        eval_s = time.perf_counter() - t0
+        expect('packnet_p1_eval', read_counts(),
+               san_fwd=CONVS_PER_FORWARD * 2 * n_lidar)
+        f32 = ev[:4] + ['save.folder', '', 'tpu.compute_dtype', 'float32']
+        mk = port_eval.test(ckpt, PACKNET_SAN_EVAL, device=dev, overrides=f32)
+        with plain_versions():
+            mp = port_eval.test(ckpt, PACKNET_SAN_EVAL, device=dev,
+                                overrides=f32)
+        # the YAML's min_depth 0 bounds the inverse depth at 1e6, and the
+        # log-space maps' median-scaled metrics reach 1e6 and more: each
+        # metric within 1e-5 of max(1, its plain value)
+        err = max(0.0 if mk[k] == mp[k] else
+                  abs(mk[k] - mp[k]) / max(1.0, abs(mp[k])) for k in mp)
+        for name, r in (('bf16', m), ('fp32', mk)):
+            if len(r) != 6 * 7 + 1 or r.skipped or any(
+                    np.isnan(v) for v in r.values()):
+                raise AssertionError('P1 {} eval: {}'.format(name, r))
+        if float(ev_cfg.model.depth_net.dropout) != 0.5 or n_lidar == 0:
+            raise AssertionError('P1 eval: dropout {}, {} frames with LiDAR'
+                                 .format(ev_cfg.model.depth_net.dropout,
+                                         n_lidar))
+        summary['p1']['eval'] = {'seconds': eval_s, 'metrics': dict(m),
+                                 'lidar_frames': n_lidar,
+                                 'fp32_kernels_vs_plain_max_err': err}
+        log('P1 eval_packnet_san_kitti.yaml over the checkpoint (dropout '
+            '0.5 in eval, B1 at the crop, {} frames with LiDAR): abs_rel '
+            '{:.4f}, depth_gt-abs_rel {:.4f} in {:.1f} s with the save pass, '
+            '{} masked-conv launches; fp32 kernels vs plain max |err| / '
+            'max(1, |value|) {:.3e} over the metrics'.format(
+                n_lidar, m['depth-abs_rel'], m['depth_gt-abs_rel'], eval_s,
+                launches['packnet_p1_eval']['san_fwd'], err))
+        if sorted(mk) != sorted(mp) or err > 1e-5:
+            raise AssertionError('P1 eval through the kernels disagrees '
+                                 'with the plain versions')
+
+        # one float32 step through the kernels against the plain versions;
+        # 10 steps on one batch, the loss falling
+        summary['p1']['fp32_step'], _ = kernel_step_check(
+            'P1', PACKNET_SAN_KITTI, p1_data, batch,
+            {'san_fwd': CONVS_PER_FORWARD, 'san_dgrad': DGRADS_PER_STEP})
+        summary['p1']['one_batch_losses'] = one_batch_falls(
+            'packnet_p1_one_batch', PACKNET_SAN_KITTI, p1_data, batch,
+            san_fwd=CONVS_PER_FORWARD, san_dgrad=DGRADS_PER_STEP)
+        one = summary['p1']['one_batch_losses']
+        log('P1 10 steps on one batch: loss {:.4f} -> {:.4f}'.format(
+            one[0], one[-1]))
+
+        # ----------------------------------------------------------- P1b
+        # PackNetSlimSAN01 with FiLM on scales 0 and 1 and the row window
+        # at 0.5, B1: the FiLM fusion, the crop and pool_denom
+        b1 = {k: (v[:1] if torch.is_tensor(v) else v)
+              for k, v in batch.items()}
+        del batch
+        _, slim = port_train.build(PACKNET_SAN_KITTI, dev, seed=0, overrides=[
+            'tpu.compute_dtype', 'float32'] + p1_data + P1B)
+        slim.eval()
+        with torch.no_grad():
+            reset_counts()
+            got_fwd = slim(b1)['inv_depths'][0]
+            fwd_launches = read_counts()
+            with plain_versions():
+                want_fwd = slim(b1)['inv_depths'][0]
+        torch.cuda.synchronize()
+        fwd_err = check_close('P1b forward', got_fwd, want_fwd, 1e-5, 0.0)
+        expect('packnet_p1b_forward', fwd_launches, san_fwd=P1B_FWD)
+        H = b1['rgb'].shape[1]
+        Hw = int(H * 0.5) // 32 * 32
+        if type(slim.depth_net).__name__ != 'PackNetSlimSAN01' or \
+                not slim.depth_net.use_film or not 0 < Hw < H or \
+                got_fwd.shape != (1, H, b1['rgb'].shape[2], 1) or \
+                not bool(torch.isfinite(got_fwd).all()):
+            raise AssertionError('P1b: {} FiLM {} window {} of {}, output '
+                                 '{}'.format(type(slim.depth_net).__name__,
+                                             slim.depth_net.use_film, Hw, H,
+                                             tuple(got_fwd.shape)))
+        del slim
+        p1b, _ = kernel_step_check('P1b', PACKNET_SAN_KITTI, p1_data + P1B,
+                                   b1, {'san_fwd': P1B_FWD,
+                                        'san_dgrad': P1B_DGRAD})
+        summary['p1b'] = {'forward_max_err': fwd_err, 'row_window': Hw,
+                          'fp32_step': p1b}
+        log('P1b PackNetSlimSAN01 (FiLM on scales 0, 1; row window {} of {} '
+            'rows) B1 fp32: forward kernels vs plain max |err| {:.3e} ({} '
+            'masked-conv launches)'.format(Hw, H, fwd_err, P1B_FWD))
+        del b1
+
+        # ------------------------------------------------------------ P2
+        droot = os.path.join(tmp, 'ddad')
+        t0 = time.perf_counter()
+        write_dgp_tree(droot, P2_SCENES, P2_SAMPLES, P_CAMERAS[:1],
+                       *DDAD_NATIVE, DDAD_POINTS, seed=0)
+        summary['write_ddad_s'] = time.perf_counter() - t0
+        log('phase P DGP tree: {} scenes x {} samples, {} at {}x{}, {} LiDAR '
+            'points a sweep, in {:.1f} s'.format(
+                P2_SCENES, P2_SAMPLES, P_CAMERAS[0], *DDAD_NATIVE,
+                DDAD_POINTS, summary['write_ddad_s']))
+        p2_data = ['datasets.train.repeat', [1], 'checkpoint.filepath', '',
+                   'arch.eval_subset_size', 2]
+        for split in ('train', 'validation', 'test'):
+            p2_data += ['datasets.{}.path'.format(split), [droot],
+                        'datasets.{}.split'.format(split), ['']]
+        p2, loader, history, fit_s, got = fit(PACKNET_DDAD, p2_data + [
+            'arch.max_epochs', P_EPOCHS])
+        steps = P_EPOCHS * len(loader)
+        expect('packnet_p2_fit', got, warp_out=WARPS_PER_STEP * steps,
+               warp_dgrid=WARPS_PER_STEP * steps)
+        batch = first_batch(loader)
+        bs = int(p2.config.datasets.train.batch_size)
+        shape = tuple(batch['rgb'].shape[1:3])
+        if type(p2.model.depth_net).__name__ != 'PackNet01' or \
+                batch['rgb'].shape[0] != bs or len(loader) != 2 or \
+                shape != tuple(p2.config.datasets.augmentation.image_shape) \
+                or len(batch['rgb_context']) != 2:
+            raise AssertionError('P2: {} B{} {}, {} steps an epoch'.format(
+                type(p2.model.depth_net).__name__, bs, shape, len(loader)))
+        alone, peak = alone_and_peak(p2.train_step, batch)
+        last = rates(history, P_EPOCHS - 1)
+        summary['p2'] = {
+            'fit_s': fit_s, 'steps': p2.step,
+            'losses': [history[e]['train/loss'] for e in range(P_EPOCHS)],
+            'val_abs_rel': [history[e]['val/depth-abs_rel']
+                            for e in range(P_EPOCHS)],
+            **last, 'first_epoch': rates(history, 0),
+            'step_alone_ms': alone, 'img_per_s_step_alone': bs * 1e3 / alone,
+            'peak_gib': peak, 'launches_per_step': {
+                'warp_out': WARPS_PER_STEP, 'warp_dgrid': WARPS_PER_STEP}}
+        log('P2 train_ddad.yaml (PackNet01 1A + PoseNet) through train.fit, '
+            'B{} {}x{} bf16, camera_01 from {}x{} (repeat 5 -> 1): {} epochs '
+            'of {} steps in {:.1f} s, launches {} ({} warp forward and {} '
+            'dgrid a step); epoch {}: {:.2f} img/s with data, data {:.1f} ms '
+            '| step {:.1f} ms a step; the step alone {:.2f} ms = {:.2f} '
+            'img/s, peak {:.2f} GiB; {}'.format(
+                bs, *shape, *DDAD_NATIVE, P_EPOCHS, len(loader), fit_s,
+                {k: v for k, v in got.items() if v}, WARPS_PER_STEP,
+                WARPS_PER_STEP, P_EPOCHS - 1, last['img_per_s_with_data'],
+                last['data_ms_per_step'], last['step_ms_per_step'], alone,
+                bs * 1e3 / alone, peak, card))
+        del p2
+        torch.cuda.empty_cache()
+
+        # two steps under the float32 maps (the photometric kernels too),
+        # one float32 step against the plain versions, the kernels against
+        # theirs on that step's inputs; 10 steps on one batch
+        reset_counts()
+        run = port_train.main(PACKNET_DDAD, dev, n_steps=2, batches=[batch],
+                              overrides=p2_data + FP32_MAPS)
+        expect('packnet_p2_fp32_maps', read_counts(),
+               **{k: v * 2 for k, v in per_step.items()})
+        summary['p2']['fp32_maps_losses'] = run['losses']
+        del run
+        summary['p2']['fp32_step'], cases = kernel_step_check(
+            'P2 (float32 maps)', PACKNET_DDAD, p2_data + FP32_MAPS, batch,
+            per_step, cancelled=True)
+        summary['p2']['kernels_vs_plain'] = check_recorded_kernels('P2',
+                                                                   cases)
+        del cases
+        summary['p2']['one_batch_losses'] = one_batch_falls(
+            'packnet_p2_one_batch', PACKNET_DDAD, p2_data, batch,
+            warp_out=WARPS_PER_STEP, warp_dgrid=WARPS_PER_STEP)
+        one = summary['p2']['one_batch_losses']
+        log('P2 kernels vs plain on the fp32 step\'s own inputs {}; 10 steps '
+            'on one batch: loss {:.4f} -> {:.4f}'.format(
+                {k: '{:.3e}'.format(v) for k, v in
+                 summary['p2']['kernels_vs_plain'].items()}, one[0], one[-1]))
+        del batch
+
+        # ------------------------------------------------------------ P3
+        # train_packnet_san_ddad.yaml, validate_first, one epoch over a
+        # four-camera tree: its four single-camera train entries (1 sample
+        # a camera with both contexts: 4 steps at B1), its eight
+        # validation entries (four with LiDAR; 3 frames each)
+        qroot = os.path.join(tmp, 'ddad4')
+        t0 = time.perf_counter()
+        write_dgp_tree(qroot, P3_SCENES, P3_SAMPLES, P_CAMERAS,
+                       *DDAD_NATIVE, DDAD_POINTS, seed=1)
+        summary['write_ddad4_s'] = time.perf_counter() - t0
+        log('phase P four-camera DGP tree: {} scene x {} samples, {} at '
+            '{}x{}, in {:.1f} s'.format(P3_SCENES, P3_SAMPLES, P_CAMERAS,
+                                         *DDAD_NATIVE,
+                                         summary['write_ddad4_s']))
+        p3_data = ['arch.max_epochs', 1, 'arch.eval_subset_size', 1,
+                   'datasets.train.repeat', [1], 'checkpoint.filepath', '']
+        for split in ('train', 'validation'):
+            p3_data += ['datasets.{}.path'.format(split), [qroot],
+                        'datasets.{}.split'.format(split), ['']]
+        p3, loader, history, fit_s, got = fit(PACKNET_SAN_DDAD, p3_data)
+        val_loaders = make_val_loaders(p3.config)
+        n_lidar = sum('input_depth' in b for _, ld in val_loaders
+                      for b in ld)
+        net = p3.model.depth_net
+        if type(net).__name__ != 'PackNetSAN01' or \
+                float(net.core.dropout) != 0.5 or len(val_loaders) != 8 or \
+                len(loader.dataset.datasets) != 4 or n_lidar == 0:
+            raise AssertionError('P3: {} dropout {}, {} validation and {} '
+                                 'train datasets, {} frames with LiDAR'
+                                 .format(type(net).__name__,
+                                         net.core.dropout, len(val_loaders),
+                                         len(loader.dataset.datasets),
+                                         n_lidar))
+        # validate_first and the epoch's validation run the masked convs
+        # on the LiDAR entries' frames; training reads no input depth
+        expect('packnet_p3_fit', got, san_fwd=CONVS_PER_FORWARD * 2 * n_lidar)
+        reset_counts()
+        t0 = time.perf_counter()
+        v1 = validate_multi(p3.config, p3.model, val_loaders)
+        val_s = time.perf_counter() - t0
+        v2 = validate_multi(p3.config, p3.model, val_loaders)
+        expect('packnet_p3_validation_twice', read_counts(),
+               san_fwd=CONVS_PER_FORWARD * 2 * n_lidar)
+        if dict(v1) != dict(v2) or len(v1) < 8 * (6 * 7 + 1):
+            raise AssertionError('P3 validation did not repeat bit for bit '
+                                 '({} metrics)'.format(len(v1)))
+        summary['p3'] = {
+            'fit_s': fit_s, 'steps': p3.step, 'loss': history[0]['train/loss'],
+            **rates(history, 0), 'validation_s': val_s,
+            'lidar_frames': n_lidar,
+            'val_abs_rel': {k: v for k, v in v1.items()
+                            if k.endswith('/depth-abs_rel')}}
+        log('P3 train_packnet_san_ddad.yaml (PackNetSAN01 dropout 0.5) '
+            'through train.fit with validate_first, B1 {}x{} bf16: {} steps '
+            'over 4 single-camera datasets in {:.1f} s, loss {:.4f} (finite), '
+            '{:.2f} img/s with data; 8 validation datasets, {} frames with '
+            'LiDAR: {} masked-conv launches in the fit (none in training), '
+            'a validation {:.1f} s, repeated bit for bit; {}'.format(
+                *p3.config.datasets.augmentation.image_shape, p3.step,
+                fit_s, history[0]['train/loss'],
+                history[0]['train/img_per_s'], n_lidar, got['san_fwd'],
+                val_s, card))
+        del p3, net, val_loaders
+        torch.cuda.empty_cache()
+    summary['phase_s'] = time.perf_counter() - t_phase
+    summary['launches'] = launches
+    log('phase P: {:.1f} s'.format(summary['phase_s']))
+    with open('chiprun_out/chip_smoke_packnet.json', 'w') as f:
+        json.dump(summary, f, indent=1, default=float)
+    return launches, summary['p1']['conv_totals']
 
 
 def time_forward(i, mod, mask, dtype, dname, esize, gen, san_conv):

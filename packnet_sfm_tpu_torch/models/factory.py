@@ -20,14 +20,18 @@ from packnet_sfm_tpu_torch.models.sfm import (
     SfmModel, SelfSupModel, SemiSupModel, SemiSupCompletionModel,
     VelSupModel)
 from packnet_sfm_tpu_torch.networks.depth.depth_resnet import DepthResNet
+from packnet_sfm_tpu_torch.networks.depth.packnet import (
+    PackNet01, PackNetSAN01, PackNetSlim01, PackNetSlimSAN01,
+    _PackNetSANBase)
 from packnet_sfm_tpu_torch.networks.depth.ray_surface_resnet import (
     RaySurfaceResNet)
 from packnet_sfm_tpu_torch.networks.depth.resnet_san import ResNetSAN01
-from packnet_sfm_tpu_torch.networks.layers.resnet import Conv, BatchNorm
+from packnet_sfm_tpu_torch.networks.layers.packnet import Conv3DStack
+from packnet_sfm_tpu_torch.networks.layers.resnet import (
+    Conv, BatchNorm, GroupNorm)
 from packnet_sfm_tpu_torch.networks.layers.san import (
     _MaskedConv, MaskedBatchNorm)
-from packnet_sfm_tpu_torch.networks.pose.pose_net import (
-    GroupNorm, PoseNet, PoseResNet)
+from packnet_sfm_tpu_torch.networks.pose.pose_net import PoseNet, PoseResNet
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -38,25 +42,41 @@ def compute_dtype(config):
                       torch.float32)
 
 
+# the config keys the JAX package's _net_kwargs forwards to each network
+# (its dataclass fields; min/max_depth and dtype aside)
+DEPTH_NET_KEYS = {
+    'ResNetSAN01': ('version', 'use_film', 'film_scales', 'use_dual_head',
+                    'san_row_window'),
+    'PackNet01': ('version', 'dropout'),
+    'PackNetSlim01': ('version', 'dropout'),
+    'PackNetSAN01': ('version', 'dropout', 'ni', 'channels', 'num_3d_feat',
+                     'use_film', 'film_scales', 'san_row_window'),
+}
+DEPTH_NET_KEYS['PackNetSlimSAN01'] = DEPTH_NET_KEYS['PackNetSAN01']
+DEPTH_NETS = {'ResNetSAN01': ResNetSAN01, 'PackNet01': PackNet01,
+              'PackNetSlim01': PackNetSlim01, 'PackNetSAN01': PackNetSAN01,
+              'PackNetSlimSAN01': PackNetSlimSAN01}
+
+
 def setup_depth_net(config, dtype=torch.float32):
-    """Build cfg.model.depth_net (ResNetSAN01, DepthResNet or
-    RaySurfaceResNet in this port)."""
+    """Build cfg.model.depth_net (ResNetSAN01, the PackNet family,
+    DepthResNet or RaySurfaceResNet in this port). A key the config leaves
+    None or '' falls through to the class default."""
     if config.name == 'RaySurfaceResNet':
         return RaySurfaceResNet(version=config.get('version') or '18pt',
                                 dtype=dtype)
     if config.name == 'DepthResNet':
         return DepthResNet(version=config.get('version') or '18pt',
                            dtype=dtype)
-    if config.name != 'ResNetSAN01':
+    if config.name not in DEPTH_NETS:
         raise NotImplementedError(
             'depth_net {!r} is not ported yet'.format(config.name))
     kwargs = {}
-    for key in ('version', 'use_film', 'film_scales', 'use_dual_head',
-                'san_row_window'):
+    for key in DEPTH_NET_KEYS[config.name]:
         v = config.get(key, None)
         if v is not None and v != '':
             kwargs[key] = tuple(v) if isinstance(v, list) else v
-    return ResNetSAN01(dtype=dtype, **kwargs)
+    return DEPTH_NETS[config.name](dtype=dtype, **kwargs)
 
 
 def setup_pose_net(config, dtype=torch.float32):
@@ -191,9 +211,12 @@ def init_weights(model, generator):
     """Random weights drawn from `generator`, with the flax initialisers'
     distributions: kaiming fan-out normal for encoder convs, lecun fan-in
     truncated normal for the pose decoder's, glorot uniform for the others
-    (PoseNet's too) and the masked convs, zero biases,
-    identity BN (running mean 0, var 1) and GroupNorm. The draws are not
-    those of the JAX package's keys."""
+    (PoseNet's and PackNet's too), the masked convs and PackNet's 3D conv
+    (`win2d_kernel` [3, 3, 3, d]: fan-in 27, fan-out 9d), zero biases,
+    identity BN (running mean 0, var 1) and GroupNorm, and the SAN fusion
+    gates at their initial values (ResNetSAN01 0.5; PackNet-SAN 1.0 plain,
+    0.5 FiLM) with zero biases. The draws are not those of the JAX
+    package's keys."""
     for mod in model.modules():
         if isinstance(mod, Conv):
             o, i, kh, kw = mod.weight.shape
@@ -221,7 +244,13 @@ def init_weights(model, generator):
             mod.bias.zero_()
             mod.mean.zero_()
             mod.var.fill_(1.0)
+        elif isinstance(mod, Conv3DStack):
+            _xavier_(mod.win2d_kernel, 27, 9 * mod.d, generator)
+            mod.win2d_bias.zero_()
         elif isinstance(mod, ResNetSAN01):
             mod.weight.fill_(0.5)
+            mod.bias.zero_()
+        elif isinstance(mod, _PackNetSANBase):
+            mod.weight.fill_(mod.gate_init)
             mod.bias.zero_()
     return model

@@ -62,12 +62,16 @@ class SfmModel(nn.Module):
                 and generator is not None
                 and float(torch.rand((), generator=generator))
                 < self.flip_lr_prob)
+        # a depth net with dropout (the PackNet family) draws its masks
+        # from the step's generator too, after the flip's draw
+        kw = ({'generator': generator}
+              if getattr(self.depth_net, 'needs_generator', False) else {})
         if flip:
             output = _flip_output(self.depth_net(
                 flip_lr(rgb),
-                None if input_depth is None else flip_lr(input_depth)))
+                None if input_depth is None else flip_lr(input_depth), **kw))
         else:
-            output = self.depth_net(rgb, input_depth=input_depth)
+            output = self.depth_net(rgb, input_depth=input_depth, **kw)
         if self.training and self.upsample_depth_maps:
             output = self._upsample_output(output)
         return output

@@ -10,7 +10,8 @@ named after the flax module paths (`Conv_0`, `BatchNorm_0`, `BasicBlock_3`,
 tree onto them by name. A conv computes in the model's compute dtype
 (float32 or bfloat16) with float32 parameters, and BatchNorm in float32, as
 the flax modules do with `dtype=` set. The pose decoder's flax convs have
-no dtype: they compute in float32, the encoder's output dtype.
+no dtype: they compute in float32, the encoder's output dtype. `GroupNorm`
+(PoseNet's and PackNet's) lives here beside BatchNorm.
 """
 
 import torch
@@ -70,6 +71,26 @@ class BatchNorm(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((xf - mean[:, None, None]) * mul[:, None, None]
                 + self.bias[:, None, None])
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax nn.GroupNorm(num_groups, epsilon=eps, dtype=float32): statistics
+    in float32, var = max(E[x^2] - E[x]^2, 0), affine. Each caller states
+    its flax module's epsilon (PoseNet's is flax's default 1e-6, PackNet's
+    1e-5)."""
+
+    def __init__(self, num_groups, channels, eps):
+        super().__init__(num_groups, channels, eps=eps)
+
+    def forward(self, x):
+        xf = x.float()
+        B, C = xf.shape[:2]
+        g = xf.reshape(B, self.num_groups, -1)
+        mean = g.mean(dim=2, keepdim=True)
+        var = ((g * g).mean(dim=2, keepdim=True) - mean * mean).clamp(min=0)
+        y = (g - mean) * torch.rsqrt(var + self.eps)
+        return y.reshape(xf.shape) * self.weight[:, None, None] + \
+            self.bias[:, None, None]
 
 
 class BasicBlock(nn.Module):

@@ -26,25 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from packnet_sfm_tpu_torch.networks.layers.resnet import (
-    Conv, PoseDecoder, ResnetEncoder, resnet_num_ch_enc)
-
-
-class GroupNorm(nn.GroupNorm):
-    """flax nn.GroupNorm(num_groups, dtype=float32): statistics in float32,
-    var = max(E[x^2] - E[x]^2, 0), epsilon 1e-6, affine."""
-
-    def __init__(self, num_groups, channels):
-        super().__init__(num_groups, channels, eps=1e-6)
-
-    def forward(self, x):
-        xf = x.float()
-        B, C = xf.shape[:2]
-        g = xf.reshape(B, self.num_groups, -1)
-        mean = g.mean(dim=2, keepdim=True)
-        var = ((g * g).mean(dim=2, keepdim=True) - mean * mean).clamp(min=0)
-        y = (g - mean) * torch.rsqrt(var + self.eps)
-        return y.reshape(xf.shape) * self.weight[:, None, None] + \
-            self.bias[:, None, None]
+    Conv, GroupNorm, PoseDecoder, ResnetEncoder, resnet_num_ch_enc)
 
 
 class _ConvGN(nn.Module):
@@ -52,7 +34,7 @@ class _ConvGN(nn.Module):
         super().__init__()
         self.Conv_0 = Conv(cin, cout, k, 2, (k - 1) // 2, True, 'xavier',
                            dtype)
-        self.GroupNorm_0 = GroupNorm(16, cout)
+        self.GroupNorm_0 = GroupNorm(16, cout, eps=1e-6)
 
     def forward(self, x):
         return F.relu(self.GroupNorm_0(self.Conv_0(x)))

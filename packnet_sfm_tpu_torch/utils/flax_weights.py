@@ -7,13 +7,15 @@ leaf `a/b/Conv_1/kernel` lands on `model.a.b.Conv_1`:
   decoder's convs among them): `kernel` HWIO -> `weight` OIHW, `bias`;
 - nn.BatchNorm2d: `scale` -> `weight`, `bias`, and batch_stats `mean` /
   `var` -> `running_mean` / `running_var`;
-- nn.GroupNorm (PoseNet's, under `pose_net/convN/GroupNorm_0`): `scale` ->
-  `weight`, `bias`;
+- nn.GroupNorm (PoseNet's, under `pose_net/convN/GroupNorm_0`, and
+  PackNet's, under `.../Conv2D_0/GroupNorm_0` and `ResidualConv_i/
+  GroupNorm_0`): `scale` -> `weight`, `bias`;
 - a module the flax model calls more than once (PoseResNet's `encoder`,
   once per context) has one set of leaves, as in flax;
 - everything else (masked-conv `kernel` kept HWIO for the kernel,
   MaskedBatchNorm `scale`/`bias`/`mean`/`var`, the fusion gates `weight` /
-  `bias`): the same name, as it is.
+  `bias`, PackNet's 3D conv `win2d_kernel` [kh, kw, dz, d] and
+  `win2d_bias`): the same name, as it is.
 
 Unlike the JAX package's utils/load.py, which keeps the random init for
 names it cannot match, this raises on any missing or unexpected key and on

@@ -164,3 +164,81 @@ def ckpt_files(folder):
     """The .ckpt files under `folder`, relative to it, sorted."""
     return sorted(str(p.relative_to(folder))
                   for p in Path(folder).rglob('*.ckpt'))
+
+
+def pooled_random_variables(shapes, seed, pool_size=1 << 20):
+    """A flax variable tree of `shapes` filled from one pool of numpy
+    normal draws (seed `seed`), each leaf a run of the pool from a random
+    offset, wrapping: kernels at 1/sqrt(fan-in), scales and variances in
+    [0.5, 1.5], the rest at 0.1 N(0, 1). For networks of ~1e8 weights,
+    where a draw a weight costs seconds."""
+    import jax
+    rng = np.random.default_rng(seed)
+    pool = rng.standard_normal(pool_size, dtype=np.float32)
+
+    def leaf(path, x):
+        name = path[-1].key
+        n = int(np.prod(x.shape))
+        if name in ('scale', 'var'):
+            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+        v = np.resize(np.roll(pool, -int(rng.integers(pool_size))),
+                      n).reshape(x.shape)
+        if name in ('kernel', 'win2d_kernel'):
+            v *= np.float32(1.0 / np.sqrt(np.prod(x.shape[:-1])))
+        else:
+            v *= np.float32(0.1)
+        return v
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def assert_grads_match(model, jgrads, batch_stats, rel=2e-2, tag=''):
+    """Each gradient leaf of `model` (after backward) against the JAX
+    gradients `jgrads` (a flax 'params' tree): |g - g_jax| <= rel |g_jax| +
+    1e-8 in the Frobenius norm; a leaf whose JAX gradient is below 1e-6 x
+    the largest leaf's (analytically zero: a conv bias before a norm that
+    removes it, float32 noise in both packages) within 1e-6 x that largest
+    norm instead. Every parameter must have a leaf."""
+    import jax
+    from packnet_sfm_tpu_torch.utils.flax_weights import flax_state_dict
+    want = flax_state_dict(model, {'params': jgrads,
+                                   'batch_stats': batch_stats})
+    params = dict(model.named_parameters())
+    assert len(params) == len(jax.tree_util.tree_leaves(jgrads))
+    top = max(float(np.linalg.norm(want[n])) for n in params)
+    for name, p in params.items():
+        g = (p.grad.numpy() if p.grad is not None
+             else np.zeros(tuple(p.shape), np.float32))
+        w = want[name]
+        err, scale = np.linalg.norm(g - w), np.linalg.norm(w)
+        if scale < 1e-6 * top:
+            assert err <= 1e-6 * top, (tag, name, err, top)
+        else:
+            assert err <= rel * scale + 1e-8, (tag, name, err, scale)
+
+
+def assert_stats_match(model, jstats, rel=1e-5):
+    """The model's buffers (BatchNorm / MaskedBatchNorm statistics) against
+    the JAX step's updated 'batch_stats', per leaf atol rel x max|leaf|."""
+    import jax
+    from packnet_sfm_tpu_torch.utils.flax_weights import flax_variables
+    got = flax_variables(model)['batch_stats']
+    a_leaves = jax.tree_util.tree_leaves_with_path(got)
+    b_leaves = jax.tree_util.tree_leaves_with_path(jstats)
+    assert len(a_leaves) == len(b_leaves)
+    for (path, a), (_, b) in zip(a_leaves, b_leaves):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=rel * float(np.abs(b).max()),
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def jax_run_once(fn, *args, opt_level=0):
+    """fn(*args) jitted for one call, XLA's CPU backend at `opt_level`: at
+    0 a narrow network's program compiles in about two thirds of the time
+    and still runs in well under a second; a full-width one runs several
+    times slower there, so it takes the default (None)."""
+    import jax
+    options = (None if opt_level is None else
+               {'xla_backend_optimization_level': opt_level})
+    return jax.jit(fn).lower(*args).compile(compiler_options=options)(*args)
